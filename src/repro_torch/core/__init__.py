@@ -1,0 +1,27 @@
+"""SQMD core of the port: the synchronous federation on one device."""
+from repro_torch.core.engine import (Federation, FederationConfig,
+                                     FederationEngine, History, evaluate,
+                                     precision_recall)
+from repro_torch.core.graph import (CollaborationGraph, graph_stats,
+                                    select_neighbors,
+                                    select_neighbors_from_div)
+from repro_torch.core.policies import SQMDPolicy, ServerPolicy, as_policy
+from repro_torch.core.protocols import Protocol, sqmd
+from repro_torch.core.quality import candidate_mask, quality_scores
+from repro_torch.core.runtime import (ClientRuntime, EveryUpload, ServerBus,
+                                      SyncClock)
+from repro_torch.core.schedules import AlwaysOn, Schedule, StagedJoin
+from repro_torch.core.server import (ServerState, init_server, policy_round,
+                                     server_round, upload_messengers)
+from repro_torch.core.similarity import divergence_matrix, similarity_matrix
+
+__all__ = [
+    "Federation", "FederationConfig", "FederationEngine", "History",
+    "evaluate", "precision_recall", "CollaborationGraph", "graph_stats",
+    "select_neighbors", "select_neighbors_from_div", "SQMDPolicy",
+    "ServerPolicy", "as_policy", "Protocol", "sqmd", "candidate_mask",
+    "quality_scores", "ClientRuntime", "EveryUpload", "ServerBus",
+    "SyncClock", "AlwaysOn", "Schedule", "StagedJoin", "ServerState",
+    "init_server", "policy_round", "server_round", "upload_messengers",
+    "divergence_matrix", "similarity_matrix",
+]

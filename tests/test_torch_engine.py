@@ -1,0 +1,163 @@
+"""The port's synchronous federation, end to end, against a live run of
+the reference's (never against its PINNED_* constants).
+
+The fixture of tests/test_runtime.py::setup: pad_like(30, 30, 24), splits
+seed 0, sqmd(q=8, k=4), 4 rounds, batch 8, eval_every 2, seed 7. The
+reference runs on kernel backend ``jnp``; its initial params and its
+threefry batch draws (``rng, sub = split(rng)``, then
+``randint(sub, (n_c, B), 0, m)`` per step and cohort in build order) are
+fed to the port through ``init_params`` and ``batch_indices``.
+
+Over four rounds the two frameworks' fp32 roundings drift apart a little:
+eval logits must agree to LOGIT_TOL, and a test prediction may differ
+only where the reference's top-two logits lie within 2 * LOGIT_TOL.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import FederationConfig as JaxConfig
+from repro.core import FederationEngine as JaxEngine
+from repro.core import sqmd as jax_sqmd
+from repro.data import make_splits as jax_make_splits
+from repro.data import pad_like as jax_pad_like
+from repro.models.mlp import hetero_mlp_zoo as jax_zoo
+from repro_torch.core import FederationConfig, FederationEngine, sqmd
+from repro_torch.data import make_splits, pad_like
+from repro_torch.launch import federate
+from repro_torch.models import hetero_mlp_zoo
+
+LOGIT_TOL = 1e-4
+CFG = dict(rounds=4, batch_size=8, eval_every=2)
+SEED = 7
+
+
+def _stack_test(splits, ids):
+    return (np.stack([splits[i].test_x for i in ids]),
+            np.stack([splits[i].test_y for i in ids]))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    ds = jax_pad_like(samples_per_client=30, ref_size=30, length=24)
+    splits = jax_make_splits(ds, seed=0)
+    zoo = jax_zoo(ds.feature_len, ds.n_classes)
+    assignment = [list(zoo)[i % 3] for i in range(ds.n_clients)]
+
+    jlogits, tlogits = [], []
+
+    def jcb(engine, rnd, metrics):
+        out = np.zeros((ds.n_clients, len(splits[0].test_y), ds.n_classes))
+        for coh in engine.fed.cohorts:
+            xs, _ = _stack_test(splits, coh.client_ids)
+            out[coh.client_ids] = np.asarray(
+                jax.vmap(coh.apply_fn)(coh.params, jnp.asarray(xs)))
+        jlogits.append(out)
+
+    jeng = JaxEngine.build(ds, splits, zoo, assignment, jax_sqmd(q=8, k=4),
+                           config=JaxConfig(**CFG, backend="jnp"),
+                           seed=SEED, callbacks=[jcb])
+    init_params = {coh.family_name: jax.tree.map(np.asarray, coh.params)
+                   for coh in jeng.fed.cohorts}
+    draws = {}
+    rng = jeng.fed.rng
+    for step in range(CFG["rounds"]):
+        for ci, coh in enumerate(jeng.fed.cohorts):
+            rng, sub = jax.random.split(rng)
+            n_c, m = coh.data["y"].shape
+            draws[step, ci] = np.asarray(jax.random.randint(
+                sub, (n_c, CFG["batch_size"]), 0, m))
+    jhist = jeng.fit(splits)
+
+    pds = pad_like(samples_per_client=30, ref_size=30, length=24)
+    psplits = make_splits(pds, seed=0)
+
+    def tcb(engine, rnd, metrics):
+        out = np.zeros((pds.n_clients, len(psplits[0].test_y),
+                        pds.n_classes))
+        for coh in engine.fed.cohorts:
+            xs, _ = _stack_test(psplits, coh.client_ids)
+            with torch.no_grad():
+                out[coh.client_ids] = coh.model(torch.from_numpy(xs)).numpy()
+        tlogits.append(out)
+
+    teng = FederationEngine.build(
+        pds, psplits, hetero_mlp_zoo(pds.feature_len, pds.n_classes),
+        assignment, sqmd(q=8, k=4), config=FederationConfig(**CFG),
+        seed=SEED, callbacks=[tcb], device="cpu", init_params=init_params,
+        batch_indices=lambda step, ci: draws[step, ci])
+    thist = teng.fit(psplits)
+    return dict(jeng=jeng, teng=teng, jhist=jhist, thist=thist,
+                jlogits=jlogits, tlogits=tlogits, splits=splits)
+
+
+def test_history_bookkeeping_matches(runs):
+    jh, th = runs["jhist"], runs["thist"]
+    assert th.rounds == jh.rounds == [0, 2, 3]
+    assert th.times == jh.times
+    assert th.server_rounds == jh.server_rounds == [1, 3, 4]
+    assert th.bytes_up == jh.bytes_up and th.bytes_down == jh.bytes_down
+    assert th.staleness == jh.staleness
+    for a, b in zip(th.graph_stats, jh.graph_stats):
+        assert a == pytest.approx(b)
+
+
+def test_eval_logits_match(runs):
+    assert len(runs["tlogits"]) == len(runs["jlogits"]) == 3
+    for t, j in zip(runs["tlogits"], runs["jlogits"]):
+        np.testing.assert_allclose(t, j, atol=LOGIT_TOL, rtol=0)
+
+
+def test_per_client_accuracy_matches_up_to_near_ties(runs):
+    """Accuracy per client and eval matches; a prediction may flip only
+    where the reference's top-two logits are within 2 * LOGIT_TOL."""
+    splits = runs["splits"]
+    ys = np.stack([s.test_y for s in splits])
+    for t, j, ta, ja in zip(runs["tlogits"], runs["jlogits"],
+                            runs["thist"].per_client_acc,
+                            runs["jhist"].per_client_acc):
+        flips = t.argmax(-1) != j.argmax(-1)
+        top2 = np.sort(j, axis=-1)[..., -2:]
+        assert (top2[..., 1] - top2[..., 0])[flips].max(initial=0.0) \
+            < 2 * LOGIT_TOL
+        per_client_flips = flips.sum(-1)
+        n_test = ys.shape[1]
+        assert np.all(np.abs(ta - ja) * n_test <= per_client_flips + 1e-6)
+    np.testing.assert_allclose(runs["thist"].mean_acc,
+                               runs["jhist"].mean_acc, atol=0.05)
+
+
+def test_final_server_state_matches(runs):
+    js, ts = runs["jeng"].server, runs["teng"].server
+    np.testing.assert_array_equal(ts.weights.numpy(), np.asarray(js.weights))
+    np.testing.assert_array_equal(ts.active.numpy(), np.asarray(js.active))
+    np.testing.assert_allclose(ts.repo_logp.numpy(), np.asarray(js.repo_logp),
+                               atol=LOGIT_TOL)
+    assert int(ts.round) == int(js.round) == 4
+
+
+def test_build_defaults_to_the_card():
+    """Without ``device=`` the engine goes to CUDA: on a machine without a
+    card that is an error naming the CPU escape hatch, never a silent
+    fallback."""
+    ds = pad_like(samples_per_client=10, ref_size=6, length=8)
+    splits = make_splits(ds, seed=0)
+    zoo = hetero_mlp_zoo(ds.feature_len, ds.n_classes)
+    if torch.cuda.is_available():
+        eng = FederationEngine.build(ds, splits, zoo, None, sqmd(q=4, k=2))
+        assert eng.fed.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FederationEngine.build(ds, splits, zoo, None, sqmd(q=4, k=2))
+
+
+def test_federate_cli_on_cpu(capsys):
+    summary = federate.main(["--device", "cpu", "--rounds", "2",
+                             "--samples-per-client", "12", "--ref-size",
+                             "12", "--schedule", "staged-join", "--q", "4",
+                             "--k", "2"])
+    assert summary["device"] == "cpu" and summary["server_rounds"] == 2
+    assert 0.0 <= summary["final_acc"] <= 1.0
+    assert '"policy": "sqmd"' in capsys.readouterr().out
