@@ -13,7 +13,13 @@ from repro_torch.core.runtime import (ClientRuntime, EveryUpload, ServerBus,
 from repro_torch.core.schedules import AlwaysOn, Schedule, StagedJoin
 from repro_torch.core.server import (ServerState, init_server, policy_round,
                                      server_round, upload_messengers)
-from repro_torch.core.similarity import divergence_matrix, similarity_matrix
+from repro_torch.core.similarity import (NeighborIndex, divergence_matrix,
+                                        similarity_matrix,
+                                        update_divergence_cache)
+from repro_torch.core.wire import (Codec, Dense32, Int8, Payload, as_codec,
+                                   bytes_per_messenger, decode, encode,
+                                   get_codec, payload_bytes, register_codec,
+                                   registered_codecs)
 
 __all__ = [
     "Federation", "FederationConfig", "FederationEngine", "History",
@@ -23,5 +29,8 @@ __all__ = [
     "quality_scores", "ClientRuntime", "EveryUpload", "ServerBus",
     "SyncClock", "AlwaysOn", "Schedule", "StagedJoin", "ServerState",
     "init_server", "policy_round", "server_round", "upload_messengers",
-    "divergence_matrix", "similarity_matrix",
+    "divergence_matrix", "similarity_matrix", "update_divergence_cache",
+    "NeighborIndex", "Codec", "Dense32", "Int8", "Payload", "as_codec",
+    "bytes_per_messenger", "decode", "encode", "get_codec",
+    "payload_bytes", "register_codec", "registered_codecs",
 ]

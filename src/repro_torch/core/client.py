@@ -10,11 +10,12 @@ updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import wire
 from repro_torch.core.distill import sqmd_loss
 from repro_torch.core.messenger import cohort_messengers
 from repro_torch.models.mlp import CohortMLP
@@ -63,7 +64,7 @@ def cohort_step(model: CohortMLP, optimizer: Optimizer,
 
 
 def cohort_messenger_upload(model: CohortMLP, ref_x: torch.Tensor,
-                            codec: Optional[str] = None):
+                            codec: Union[None, str, wire.Codec] = None):
     """(n_c, R, C) log-prob messengers, wire-encoded when ``codec`` is
     given."""
     return cohort_messengers(model, ref_x, codec=codec)

@@ -28,6 +28,7 @@ import torch
 from repro_torch import Device, resolve_device
 from repro_torch.convert import cohort_params_from_numpy
 from repro_torch.core import graph as graph_mod
+from repro_torch.core import wire
 from repro_torch.core.client import (Cohort, cohort_accuracy,
                                      cohort_accuracy_masked, cohort_pred)
 from repro_torch.core.policies import ServerPolicy, as_policy
@@ -82,6 +83,8 @@ class Federation:
     generator: torch.Generator
     targets: Optional[torch.Tensor] = None          # (N,R,C)
     history: History = dataclasses.field(default_factory=History)
+    uplink: str = "dense32"     # wire codec names, client->server and
+    downlink: str = "dense32"   # server->client
 
     @property
     def device(self) -> torch.device:
@@ -93,6 +96,12 @@ class FederationConfig:
     rounds: int = 40
     batch_size: int = 32
     eval_every: int = 10
+    delta_graph: bool = False       # incremental O(u·N) server graph
+    # updates; off by default — the full rebuild is the exact oracle
+    selection: str = "exact"        # "exact" dense (N,N) divergence, or
+    # "ivf": the approximate top-K index (requires delta_graph)
+    uplink: str = "dense32"         # messenger wire codec, client->server
+    downlink: str = "dense32"       # target wire codec, server->client
     verbose: bool = False
 
     def __post_init__(self):
@@ -102,6 +111,18 @@ class FederationConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
+        if self.selection not in ("exact", "ivf"):
+            raise ValueError(f"selection must be 'exact' or 'ivf', got "
+                             f"{self.selection!r}")
+        if self.selection == "ivf" and not self.delta_graph:
+            raise ValueError("selection='ivf' requires delta_graph=True: "
+                             "the approximate index only exists on the "
+                             "incremental build_graph_delta path")
+        for which in ("uplink", "downlink"):
+            try:
+                wire.as_codec(getattr(self, which))
+            except KeyError as e:
+                raise ValueError(f"{which}: {e}") from None
 
 
 RoundCallback = Callable[["FederationEngine", int, Dict[str, Any]], None]
@@ -171,9 +192,13 @@ class FederationEngine:
         self.config = config or FederationConfig()
         self.callbacks: List[RoundCallback] = list(callbacks)
         self.clock = SyncClock()
+        federation.uplink = self.config.uplink
+        federation.downlink = self.config.downlink
         self.clients = ClientRuntime(federation, policy, self.config,
                                      batch_indices=batch_indices)
-        self.bus = ServerBus(federation, policy)
+        self.bus = ServerBus(federation, policy,
+                             delta=self.config.delta_graph,
+                             selection=self.config.selection)
 
     @property
     def server(self) -> ServerState:

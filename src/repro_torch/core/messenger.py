@@ -3,7 +3,7 @@ stored as LOG-probabilities ``(R, C)``; the repository stacks them into
 ``S (N, R, C)``."""
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 import torch.nn.functional as F
@@ -13,7 +13,7 @@ from repro_torch.core import wire
 
 @torch.no_grad()
 def cohort_messengers(model, ref_x: torch.Tensor,
-                      codec: Optional[str] = None
+                      codec: Union[None, str, wire.Codec] = None
                       ) -> Union[torch.Tensor, wire.Payload]:
     """(n_c, R, C) log-prob messengers of a stacked cohort; with ``codec``
     the stack is wire-encoded before it leaves the function."""

@@ -67,6 +67,11 @@ class ServerPolicy(abc.ABC):
     """Base strategy: subclasses override ``build_graph``."""
 
     name: str = "?"                 # bound by @register_policy
+    # Neighbor-selection strategy, attached by the ServerBus: "exact"
+    # keeps the dense (N,N) divergence path; "ivf" lets a policy that
+    # supports it (SQMD) run its delta rounds on the approximate
+    # NeighborIndex. Policies without an approximate path never read it.
+    selection = "exact"
 
     def __init__(self, protocol=None):
         if protocol is None:
@@ -88,6 +93,12 @@ class ServerPolicy(abc.ABC):
     @abc.abstractmethod
     def build_graph(self, state, quality: torch.Tensor):
         """CollaborationGraph for this round."""
+
+    def build_graph_delta(self, state, quality: torch.Tensor, uploaded):
+        """Incremental variant: ``uploaded`` is the (N,) bool mask of every
+        repository row changed since the last policy round. The default
+        ignores it and rebuilds — always correct."""
+        return self.build_graph(state, quality)
 
     def emit_targets(self, state, graph) -> torch.Tensor:
         """(N,R,C) fp32 probability targets: the K^n neighbor mean."""

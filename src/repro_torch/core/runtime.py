@@ -11,12 +11,14 @@
 Clients outside a round's mask stay frozen and keep their stale
 repository row.
 
-This slice carries the full-rebuild server (no delta rounds) and the
-``dense32`` wire.
+``ServerBus(delta=True)`` hands each fire the accumulated mask of rows
+uploaded since the last fire, so the policy can take its incremental
+graph update; the uplink and downlink codecs are the bus's (else the
+federation's, else ``dense32``).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -26,8 +28,6 @@ from repro_torch.core.client import cohort_messenger_upload, cohort_step
 from repro_torch.core.server import (policy_round, staleness_summary,
                                      upload_messengers)
 from repro_torch.data.pipeline import cohort_batch
-
-CODEC = "dense32"
 
 # batch_indices(step, cohort_idx) -> (n_c, B) sample indices
 BatchIndices = Callable[[int, int], np.ndarray]
@@ -101,10 +101,14 @@ class ClientRuntime:
                 self.policy.rho, use_ref)
         self.step += 1
 
+    @property
+    def uplink(self) -> wire.Codec:
+        return wire.as_codec(getattr(self.fed, "uplink", None))
+
     def collect_messengers(self, mask_np: np.ndarray) -> wire.Payload:
-        """Wire-encoded (N,R,C) messenger batch; cohorts with no masked
-        client are skipped (their rows stay zero and are masked out of the
-        merge)."""
+        """(N,R,C) messenger batch encoded with the uplink codec; cohorts
+        with no masked client are skipped (their rows stay zero and are
+        masked out of the merge)."""
         fed = self.fed
         n, r, c = fed.server.repo_logp.shape
         parts, rows = [], []
@@ -112,10 +116,10 @@ class ClientRuntime:
             if not mask_np[coh.client_ids].any():
                 continue
             parts.append(cohort_messenger_upload(coh.model, fed.ref_x,
-                                                 codec=CODEC))
+                                                 codec=self.uplink))
             rows.append(coh.client_ids)
         if not parts:
-            return wire.encode(CODEC, torch.zeros(
+            return self.uplink.encode(torch.zeros(
                 (n, r, c), device=fed.server.repo_logp.device))
         return wire.assemble(parts, rows, n)
 
@@ -125,20 +129,47 @@ class ServerBus:
 
     ``deliver`` merges the masked rows into the repository and meters
     ``bytes_up`` for every transmitting client; ``fire`` runs
-    ``policy_round``, wire-codes the targets for the downlink (clients
-    train on the DECODED payload) and charges ``bytes_down`` to the
-    policy's receivers."""
+    ``policy_round``, wire-codes the targets with the downlink codec
+    (clients train on the DECODED payload) and charges ``bytes_down`` to
+    the policy's receivers.
 
-    def __init__(self, federation, policy):
+    ``delta=True`` hands each fire ``fresh_since_fire``, the rows merged
+    since the last fire, so the policy can take its incremental graph
+    update (``build_graph_delta``) instead of the full rebuild.
+    ``selection`` ("exact" or "ivf") is set on the policy, which reads it
+    in its delta rounds."""
+
+    def __init__(self, federation, policy, delta: bool = False,
+                 uplink: Union[None, str, wire.Codec] = None,
+                 downlink: Union[None, str, wire.Codec] = None,
+                 selection: Optional[str] = None):
         self.fed = federation
         self.policy = policy
         self.trigger = EveryUpload()
+        self.delta = bool(delta)
+        if selection is not None:
+            policy.selection = selection
+        # None => follow the federation's codec names (else dense32)
+        self._uplink = uplink
+        self._downlink = downlink
         n = federation.n_clients
         self.last_upload_t = np.full(n, -np.inf)
+        self.uploads_since_fire = 0                 # rows merged
+        self.fresh_since_fire = np.zeros(n, bool)   # distinct uploaders
         self.n_triggers = 0
         self.bytes_up = np.zeros(n)
         self.bytes_down = np.zeros(n)
         self.last_graph = None
+
+    @property
+    def uplink(self) -> wire.Codec:
+        return wire.as_codec(self._uplink if self._uplink is not None
+                             else getattr(self.fed, "uplink", None))
+
+    @property
+    def downlink(self) -> wire.Codec:
+        return wire.as_codec(self._downlink if self._downlink is not None
+                             else getattr(self.fed, "downlink", None))
 
     def deliver(self, t: float, msg: wire.Payload,
                 uploaded: np.ndarray) -> bool:
@@ -150,6 +181,8 @@ class ServerBus:
         fed = self.fed
         fed.server = upload_messengers(fed.server, msg, torch.as_tensor(up))
         self.last_upload_t = np.where(up, t, self.last_upload_t)
+        self.uploads_since_fire += int(up.sum())
+        self.fresh_since_fire |= up
         if self.trigger.should_fire(t, self):
             self.fire(t)
             return True
@@ -158,19 +191,24 @@ class ServerBus:
     def fire(self, t: float) -> None:
         """grade -> build graph -> emit targets, then the downlink."""
         fed = self.fed
+        uploaded = self.fresh_since_fire.copy() if self.delta else None
         fed.server, targets, self.last_graph = policy_round(
-            fed.server, self.policy, fed.ref_y)
-        payload = wire.encode(CODEC, targets, domain="prob")
+            fed.server, self.policy, fed.ref_y, uploaded=uploaded)
+        payload = self.downlink.encode(targets, domain="prob")
         decoded = wire.decode(payload)
         recv = self.policy.receivers(fed.server, self.last_graph)
         if not bool(recv.all()):
-            # nothing is sent to excluded rows, so nothing may arrive
+            # nothing is sent to excluded rows, so nothing may arrive: a
+            # lossy decode would otherwise turn their zero target rows
+            # into near-uniform distributions they train toward
             decoded = torch.where(recv[:, None, None], decoded,
                                   torch.zeros_like(decoded))
         fed.targets = decoded
         self.bytes_down[recv.cpu().numpy()] += \
             wire.bytes_per_messenger(payload)
         self.n_triggers += 1
+        self.uploads_since_fire = 0
+        self.fresh_since_fire[:] = False
 
     def staleness(self, now: float) -> dict:
         return staleness_summary(self.last_upload_t,

@@ -12,7 +12,7 @@ State (tensors on the server's device):
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,13 +103,20 @@ def staleness_summary(last_upload_t: np.ndarray, active: np.ndarray,
             "hist": [int(h) for h in hist], "bin_edges": list(bins)}
 
 
-def policy_round(state: ServerState, policy, ref_labels: torch.Tensor):
-    """Lines 7–10: grade -> build graph (full rebuild) -> emit targets.
+def policy_round(state: ServerState, policy, ref_labels: torch.Tensor,
+                 uploaded: Optional[np.ndarray] = None):
+    """Lines 7–10: grade -> build graph -> emit targets.
 
-    ``policy`` is a resolved ServerPolicy. Returns (new_state, targets
-    (N,R,C) fp32, CollaborationGraph)."""
+    ``policy`` is a resolved ServerPolicy. ``uploaded``, when given, is
+    the boolean (N,) mask of every repository row changed since the last
+    policy round: the policy may then take its incremental graph update
+    (``build_graph_delta``); ``None`` always rebuilds. Returns (new_state,
+    targets (N,R,C) fp32, CollaborationGraph)."""
     g = policy.grade(state, ref_labels)
-    graph = policy.build_graph(state, g)
+    if uploaded is None:
+        graph = policy.build_graph(state, g)
+    else:
+        graph = policy.build_graph_delta(state, g, uploaded)
     targets = policy.emit_targets(state, graph)
     return policy.update_state(state, g, graph), targets, graph
 

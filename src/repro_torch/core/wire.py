@@ -1,23 +1,41 @@
-"""Messenger wire format — the encoded form messengers travel in.
+"""Messenger wire codecs — the encoded form messengers travel in.
 
-This slice of the port carries the ``dense32`` codec only: fp32
-pass-through, ``decode(encode(x))`` is ``x``. A ``Payload`` holds the
-wire arrays and the logical decoded shape, so bytes are metered on what
-the link carried.
+A codec turns a stack of soft decisions ``(..., R, C)`` into a
+``Payload`` (wire-dtype tensors plus the logical decoded shape) and back:
+
+    encode(codec, x, domain) -> Payload   # what the client transmits
+    decode(payload)          -> x_hat     # what the server reconstructs
+    payload_bytes(payload)   -> int       # what the link carried
+
+Codecs are registered by name (``@register_codec``) and reachable from
+``FederationConfig(uplink=..., downlink=...)`` and the ``federate`` CLI.
+This port carries:
+
+  dense32   fp32 pass-through — the bit-identical oracle (default)
+  int8      per-row affine quantization: uint8 codes + per-row bf16
+            scale / zero point (the row minimum), C + 4 bytes a row
+
+``domain`` records what the values are: messenger LOG-probabilities
+(``"log"``, the uplink) or probability targets (``"prob"``, the
+downlink). A lossy decode renormalizes in its domain.
 """
 from __future__ import annotations
 
+import abc
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Type, Union
 
 import torch
 
+from repro_torch.kernels import ops
+
 _DOMAINS = ("log", "prob")
+_PROB_FLOOR = 1e-10   # decode floor before a renorm: keeps KL terms finite
 
 
 @dataclasses.dataclass
 class Payload:
-    """One encoded messenger batch: wire arrays + routing metadata."""
+    """One encoded messenger batch: wire tensors + routing metadata."""
     codec: str
     domain: str
     shape: Tuple[int, ...]
@@ -32,29 +50,100 @@ class Payload:
         return n
 
 
-def _check_codec(codec: str) -> None:
-    if codec != "dense32":
-        raise KeyError(f"unknown codec {codec!r}; this port has: dense32")
+# --------------------------------------------------------------------------
+# registry
+# --------------------------------------------------------------------------
+
+_CODECS: Dict[str, Type["Codec"]] = {}
 
 
-def encode(codec: str, x: torch.Tensor, domain: str = "log") -> Payload:
-    """``x (..., R, C)`` soft decisions -> wire Payload."""
-    _check_codec(codec)
-    if domain not in _DOMAINS:
-        raise ValueError(f"domain must be one of {_DOMAINS}, got {domain!r}")
-    x = x.float()
-    return Payload("dense32", domain, tuple(x.shape), {"data": x})
+def register_codec(name: str):
+    """Class decorator binding ``cls.name`` and making the codec reachable
+    by name (config, CLI)."""
+
+    def deco(cls: Type["Codec"]) -> Type["Codec"]:
+        if name in _CODECS:
+            raise ValueError(f"codec {name!r} already registered")
+        cls.name = name
+        _CODECS[name] = cls
+        return cls
+
+    return deco
+
+
+def registered_codecs() -> Tuple[str, ...]:
+    return tuple(sorted(_CODECS))
+
+
+def get_codec(name: str) -> Type["Codec"]:
+    try:
+        return _CODECS[name]
+    except KeyError:
+        raise KeyError(f"unknown codec {name!r}; registered: "
+                       f"{registered_codecs()}") from None
+
+
+def as_codec(spec: Union[None, str, "Codec"]) -> "Codec":
+    """Coerce None / name / instance into a Codec (None is dense32). A
+    ``name:arg`` spec passes ``arg`` to the codec."""
+    if isinstance(spec, Codec):
+        return spec
+    if spec is None:
+        return get_codec("dense32")()
+    name, _, arg = spec.partition(":")
+    return get_codec(name).from_arg(arg)
+
+
+# --------------------------------------------------------------------------
+# codec interface
+# --------------------------------------------------------------------------
+
+class Codec(abc.ABC):
+    """A messenger wire format: a small frozen config holder."""
+
+    name: str = "?"
+
+    @classmethod
+    def from_arg(cls, arg: str) -> "Codec":
+        if arg:
+            raise ValueError(f"codec {cls.name!r} takes no argument "
+                             f"(got {arg!r})")
+        return cls()
+
+    @abc.abstractmethod
+    def encode(self, x: torch.Tensor, domain: str = "log") -> Payload:
+        """``x (..., R, C)`` soft decisions -> wire Payload."""
+
+    @abc.abstractmethod
+    def decode(self, payload: Payload) -> torch.Tensor:
+        """Payload -> ``(..., R, C)`` fp32 reconstruction."""
+
+    def payload_bytes(self, payload: Payload) -> int:
+        """Wire bytes of the whole payload (fields at their wire dtypes)."""
+        return int(sum(a.numel() * a.element_size()
+                       for a in payload.arrays.values()))
+
+    def _check(self, domain: str) -> None:
+        if domain not in _DOMAINS:
+            raise ValueError(f"domain must be one of {_DOMAINS}, "
+                             f"got {domain!r}")
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}()"
+
+
+def encode(codec: Union[None, str, Codec], x: torch.Tensor,
+           domain: str = "log") -> Payload:
+    return as_codec(codec).encode(x, domain=domain)
 
 
 def decode(payload: Payload) -> torch.Tensor:
-    _check_codec(payload.codec)
-    return payload.arrays["data"]
+    """Dispatch on the payload's own codec name."""
+    return get_codec(payload.codec)().decode(payload)
 
 
 def payload_bytes(payload: Payload) -> int:
-    """Wire bytes of the whole payload (fields at their wire dtypes)."""
-    return int(sum(a.numel() * a.element_size()
-                   for a in payload.arrays.values()))
+    return get_codec(payload.codec)().payload_bytes(payload)
 
 
 def bytes_per_messenger(payload: Payload) -> float:
@@ -62,7 +151,9 @@ def bytes_per_messenger(payload: Payload) -> float:
 
 
 def gather(payload: Payload, rows) -> Payload:
-    """Slice a batched payload down to the given leading-axis rows."""
+    """Slice a batched payload down to the given leading-axis rows (every
+    codec is row-independent, so ``decode(gather(p, rows))`` is
+    ``decode(p)[rows]``)."""
     if len(payload.shape) < 3:
         raise ValueError(f"gather needs a batched (N, R, C) payload, got "
                          f"shape {payload.shape}")
@@ -92,3 +183,82 @@ def assemble(parts: Sequence[Payload], rows: Sequence, n: int) -> Payload:
             base[k][idx] = part.arrays[k]
     return Payload(first.codec, first.domain, (n,) + tuple(first.shape[1:]),
                    base)
+
+
+# --------------------------------------------------------------------------
+# built-in codecs
+# --------------------------------------------------------------------------
+
+@register_codec("dense32")
+@dataclasses.dataclass(frozen=True)
+class Dense32(Codec):
+    """fp32 pass-through: decode(encode(x)) IS x for fp32 input."""
+
+    def encode(self, x: torch.Tensor, domain: str = "log") -> Payload:
+        self._check(domain)
+        x = x.float()
+        return Payload("dense32", domain, tuple(x.shape), {"data": x})
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        return payload.arrays["data"]
+
+
+def quantize_int8(x: torch.Tensor):
+    """(..., C) fp32 -> (q uint8, scale bf16, zp bf16), per row.
+
+    Quantizes against the bf16-ROUNDED scale and zero point — the values
+    the decoder reads off the wire — in the reference's order:
+    ``(x − zp) / scale``, round half to even, clip to [0, 255]. The scale
+    ``(hi − lo)/255`` is floored at 1e-8 before its bf16 cast."""
+    x = x.float()
+    lo = x.amin(dim=-1)
+    hi = x.amax(dim=-1)
+    scale = torch.clamp((hi - lo) / 255.0, min=1e-8).to(torch.bfloat16)
+    zp = lo.to(torch.bfloat16)
+    q = torch.clamp(torch.round((x - zp.float()[..., None])
+                                / scale.float()[..., None]),
+                    0.0, 255.0).to(torch.uint8)
+    return q, scale, zp
+
+
+@register_codec("int8")
+@dataclasses.dataclass(frozen=True)
+class Int8(Codec):
+    """Per-row affine quantization (one row = one reference sample):
+    uint8 codes with a per-row bf16 scale and zero point (the row
+    minimum). Decode dequantizes and renormalizes in its domain; the bf16
+    rounding of the zero point is a per-row shift the log-domain softmax
+    cancels."""
+
+    def encode(self, x: torch.Tensor, domain: str = "log") -> Payload:
+        self._check(domain)
+        q, scale, zp = quantize_int8(x)
+        return Payload("int8", domain, tuple(x.shape),
+                       {"q": q, "scale": scale, "zp": zp})
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        deq = (payload.arrays["q"].float()
+               * payload.arrays["scale"].float()[..., None]
+               + payload.arrays["zp"].float()[..., None])
+        if payload.domain == "log":
+            return torch.log_softmax(deq, dim=-1)
+        return _renorm_probs(deq)
+
+    def pairwise_kl(self, payload: Payload) -> torch.Tensor:
+        """Eq. 2 divergence matrix straight off the wire form, through the
+        fused dequant -> KL kernel (``kernels/dequant_kl.py``): the fp32
+        (N, R, C) decode is never materialized."""
+        if payload.domain != "log":
+            raise ValueError("pairwise_kl grades log-domain messengers")
+        if len(payload.shape) != 3:
+            raise ValueError(f"expected an (N, R, C) repository payload, "
+                             f"got shape {payload.shape}")
+        return ops.int8_pairwise_kl(payload.arrays["q"],
+                                    payload.arrays["scale"],
+                                    payload.arrays["zp"])
+
+
+def _renorm_probs(x: torch.Tensor) -> torch.Tensor:
+    """Clip to the simplex floor and renormalize rows to sum 1."""
+    p = torch.clamp(x, min=_PROB_FLOOR)
+    return p / p.sum(dim=-1, keepdim=True)

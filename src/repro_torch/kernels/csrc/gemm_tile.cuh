@@ -1,5 +1,5 @@
-// Shared fp32 tiling for the two GEMM-shaped server kernels
-// (pairwise_kl.cu, neighbor_mean.cu).
+// Shared fp32 tiling for the GEMM-shaped server kernels
+// (pairwise_kl.cu, neighbor_mean.cu, dequant_kl.cu).
 //
 // A block owns one BM x BN output tile and walks the whole contraction
 // axis itself in BK-deep steps (the Pallas grid's sequential k axis

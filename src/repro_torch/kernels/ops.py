@@ -12,6 +12,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import dequant_kl as _dk
 from repro_torch.kernels import neighbor_mean as _nm
 from repro_torch.kernels import pairwise_kl as _pk
 from repro_torch.kernels import soft_ce as _sc
@@ -20,7 +21,8 @@ from repro_torch.kernels import soft_ce as _sc
 # strips instead of one call, bounding each call's output and scratch.
 CHUNK_ROWS = 2048
 
-_MODULES = {"pairwise_kl_pair": _pk, "soft_ce": _sc, "neighbor_mean": _nm}
+_MODULES = {"pairwise_kl_pair": _pk, "soft_ce": _sc, "neighbor_mean": _nm,
+            "int8_pairwise_kl_pair": _dk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -48,6 +50,34 @@ def pairwise_kl_pair(logp_a: torch.Tensor,
                      logp_b: torch.Tensor) -> torch.Tensor:
     """Rectangular Eq. 2 strip: logp_a (U,R,C), logp_b (M,R,C) -> (U,M)."""
     return _pk.pairwise_kl_pair(logp_a.contiguous(), logp_b.contiguous())
+
+
+def int8_pairwise_kl(q: torch.Tensor, scale: torch.Tensor,
+                     zp: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 divergence matrix straight off the int8 wire form: q (N,R,C)
+    uint8, scale/zp (N,R) (``wire.Int8`` payload fields) -> (N,N) fp32.
+    N > CHUNK_ROWS is computed as CHUNK_ROWS x N row strips."""
+    q, scale, zp = q.contiguous(), scale.contiguous(), zp.contiguous()
+    n = q.shape[0]
+    if n > CHUNK_ROWS:
+        return torch.cat([
+            int8_pairwise_kl_pair(q[i:i + CHUNK_ROWS],
+                                  scale[i:i + CHUNK_ROWS],
+                                  zp[i:i + CHUNK_ROWS], q, scale, zp)
+            for i in range(0, n, CHUNK_ROWS)], dim=0)
+    return int8_pairwise_kl_pair(q, scale, zp, q, scale, zp)
+
+
+def int8_pairwise_kl_pair(qa: torch.Tensor, sa: torch.Tensor,
+                          zpa: torch.Tensor, qb: torch.Tensor,
+                          sb: torch.Tensor,
+                          zpb: torch.Tensor) -> torch.Tensor:
+    """Rectangular Eq. 2 strip between two int8 wire forms: qa (U,R,C) /
+    qb (M,R,C) uint8 with per-row scale/zp -> (U,M) fp32. The IVF index's
+    search primitive."""
+    return _dk.int8_pairwise_kl_pair(
+        qa.contiguous(), sa.contiguous(), zpa.contiguous(),
+        qb.contiguous(), sb.contiguous(), zpb.contiguous())
 
 
 def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,35 @@ def pairwise_kl_pair_ref(logp_a: torch.Tensor,
     return (rowterm[:, None] - cross) / r
 
 
+def int8_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
+                     zp: torch.Tensor) -> torch.Tensor:
+    """Int8 wire form -> normalized log-probs, fully materialized.
+
+    q (..., R, C) uint8 codes, scale/zp (..., R) per-row affine params
+    (``core.wire.Int8``). ``zp`` cancels in the softmax but is applied so
+    the result is the codec's own decode."""
+    deq = (q.float() * scale.float()[..., None]
+           + zp.float()[..., None])
+    return torch.log_softmax(deq, dim=-1)
+
+
+def int8_pairwise_kl_ref(q: torch.Tensor, scale: torch.Tensor,
+                         zp: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 matrix of an int8-encoded repository: decode, then the dense
+    pairwise KL. q (N,R,C) -> (N,N) fp32."""
+    return pairwise_kl_ref(int8_dequant_ref(q, scale, zp))
+
+
+def int8_pairwise_kl_pair_ref(qa: torch.Tensor, sa: torch.Tensor,
+                              zpa: torch.Tensor, qb: torch.Tensor,
+                              sb: torch.Tensor,
+                              zpb: torch.Tensor) -> torch.Tensor:
+    """Rectangular Eq. 2 strip between two int8-encoded stacks:
+    qa (U,R,C), qb (M,R,C) -> (U,M) fp32."""
+    return pairwise_kl_pair_ref(int8_dequant_ref(qa, sa, zpa),
+                                int8_dequant_ref(qb, sb, zpb))
+
+
 def soft_ce_ref(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Eq. 1 quality: g[n] = sum_i [logsumexp_c z[n,i,:] - z[n,i,y_i]].
 

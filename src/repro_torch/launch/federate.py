@@ -3,6 +3,8 @@
   python -m repro_torch.launch.federate --device cuda --rounds 40
   python -m repro_torch.launch.federate --schedule staged-join \
       --dataset sc_like --device cpu
+  python -m repro_torch.launch.federate --delta --selection ivf \
+      --uplink int8 --device cuda
 
 (with ``src`` on ``PYTHONPATH``). Prints per-eval accuracy, then a JSON
 summary. ``--device`` defaults to ``cuda`` and fails without a card.
@@ -14,7 +16,8 @@ import json
 import time
 
 from repro_torch.core import (FederationConfig, FederationEngine, Protocol,
-                              StagedJoin, precision_recall)
+                              StagedJoin, as_codec, precision_recall,
+                              registered_codecs)
 from repro_torch.core.policies import registered_policies
 from repro_torch.data import DATASETS, make_splits
 from repro_torch.models import hetero_mlp_zoo
@@ -38,12 +41,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--samples-per-client", type=int, default=60)
     ap.add_argument("--ref-size", type=int, default=120)
     ap.add_argument("--label-noise", type=float, default=0.3)
+    ap.add_argument("--delta", action="store_true",
+                    help="incremental O(u·N) server graph updates (vs the "
+                         "full O(N^2) rebuild)")
+    ap.add_argument("--selection", choices=("exact", "ivf"),
+                    default="exact",
+                    help="neighbor selection: the exact dense (N,N) "
+                         "divergence or the approximate IVF top-K index "
+                         "(requires --delta)")
+    ap.add_argument("--uplink", default="dense32",
+                    help="messenger wire codec, client->server "
+                         f"({', '.join(registered_codecs())})")
+    ap.add_argument("--downlink", default="dense32",
+                    help="target wire codec, server->client (same names)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be >= 1")
+    if args.selection == "ivf" and not args.delta:
+        ap.error("--selection ivf requires --delta (the approximate index "
+                 "only exists on the incremental graph path)")
+    for which in ("uplink", "downlink"):
+        try:
+            as_codec(getattr(args, which))
+        except (KeyError, ValueError) as e:
+            ap.error(f"--{which}: {e}")
 
     ds = DATASETS[args.dataset](samples_per_client=args.samples_per_client,
                                 ref_size=args.ref_size)
@@ -55,7 +79,10 @@ def main(argv=None) -> dict:
                                for i in range(ds.n_clients)])
     protocol = Protocol(args.policy, rho=args.rho, q=args.q, k=args.k)
     config = FederationConfig(rounds=args.rounds, batch_size=args.batch,
-                              eval_every=args.eval_every, verbose=True)
+                              eval_every=args.eval_every,
+                              delta_graph=args.delta,
+                              selection=args.selection, uplink=args.uplink,
+                              downlink=args.downlink, verbose=True)
     print(f"policy={args.policy} schedule={schedule or 'always-on'} "
           f"dataset={args.dataset} clients={ds.n_clients} "
           f"device={args.device} config={config}")
@@ -69,6 +96,8 @@ def main(argv=None) -> dict:
     summary = {
         "policy": args.policy, "dataset": args.dataset,
         "schedule": args.schedule, "rounds": args.rounds,
+        "delta": args.delta, "selection": args.selection,
+        "uplink": args.uplink, "downlink": args.downlink,
         "device": str(engine.fed.device),
         "final_acc": hist.mean_acc[-1], "selected_acc": hist.selected_acc,
         "macro_precision": prec, "macro_recall": rec,

@@ -39,8 +39,20 @@ def _stack_test(splits, ids):
             np.stack([splits[i].test_y for i in ids]))
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _record_fires(bus, out):
+    """Keep the graph of every fire (callbacks see only eval rounds)."""
+    fire = bus.fire
+
+    def recording(t):
+        fire(t)
+        out.append(bus.last_graph)
+
+    bus.fire = recording
+
+
+def _run_both(**server):
+    """The fixture federation in both packages, with ``server`` config
+    (delta_graph / selection / uplink / downlink) on both sides."""
     ds = jax_pad_like(samples_per_client=30, ref_size=30, length=24)
     splits = jax_make_splits(ds, seed=0)
     zoo = jax_zoo(ds.feature_len, ds.n_classes)
@@ -57,8 +69,10 @@ def runs():
         jlogits.append(out)
 
     jeng = JaxEngine.build(ds, splits, zoo, assignment, jax_sqmd(q=8, k=4),
-                           config=JaxConfig(**CFG, backend="jnp"),
+                           config=JaxConfig(**CFG, **server, backend="jnp"),
                            seed=SEED, callbacks=[jcb])
+    jfires, tfires = [], []
+    _record_fires(jeng.bus, jfires)
     init_params = {coh.family_name: jax.tree.map(np.asarray, coh.params)
                    for coh in jeng.fed.cohorts}
     draws = {}
@@ -85,12 +99,31 @@ def runs():
 
     teng = FederationEngine.build(
         pds, psplits, hetero_mlp_zoo(pds.feature_len, pds.n_classes),
-        assignment, sqmd(q=8, k=4), config=FederationConfig(**CFG),
+        assignment, sqmd(q=8, k=4), config=FederationConfig(**CFG, **server),
         seed=SEED, callbacks=[tcb], device="cpu", init_params=init_params,
         batch_indices=lambda step, ci: draws[step, ci])
+    _record_fires(teng.bus, tfires)
     thist = teng.fit(psplits)
     return dict(jeng=jeng, teng=teng, jhist=jhist, thist=thist,
-                jlogits=jlogits, tlogits=tlogits, splits=splits)
+                jlogits=jlogits, tlogits=tlogits, splits=splits,
+                jfires=jfires, tfires=tfires)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return _run_both()
+
+
+# the slice's other server paths: delta rounds on the exact cache, and
+# delta rounds on the IVF index with the int8 uplink
+SERVER_PATHS = {"delta": dict(delta_graph=True),
+                "ivf-int8": dict(delta_graph=True, selection="ivf",
+                                 uplink="int8")}
+
+
+@pytest.fixture(scope="module", params=list(SERVER_PATHS))
+def server_runs(request):
+    return _run_both(**SERVER_PATHS[request.param])
 
 
 def test_history_bookkeeping_matches(runs):
@@ -138,6 +171,60 @@ def test_final_server_state_matches(runs):
     assert int(ts.round) == int(js.round) == 4
 
 
+def test_server_paths_pick_the_same_edges_up_to_near_ties(server_runs):
+    """Per fire, each client's neighbor set equals the reference's, or the
+    differing picks are near-ties: the sorted similarities of the two
+    sets agree to 1e-4 relative."""
+    jf, tf = server_runs["jfires"], server_runs["tfires"]
+    assert len(jf) == len(tf) == CFG["rounds"]
+    ivf = server_runs["teng"].policy.selection == "ivf"
+    for jg, tg in zip(jf, tf):
+        assert (tg.divergence is None) == ivf
+        np.testing.assert_array_equal(tg.candidates.numpy(),
+                                      np.asarray(jg.candidates))
+        jw, tw = np.asarray(jg.weights), tg.weights.numpy()
+        jsim, tsim = np.asarray(jg.similarity), tg.similarity.numpy()
+        for i in range(jw.shape[0]):
+            je, te = np.nonzero(jw[i])[0], np.nonzero(tw[i])[0]
+            if np.array_equal(je, te):
+                continue
+            np.testing.assert_allclose(np.sort(tsim[i, te]),
+                                       np.sort(jsim[i, je]), rtol=1e-4)
+
+
+def test_server_paths_eval_logits_match(server_runs):
+    jh, th = server_runs["jhist"], server_runs["thist"]
+    assert th.server_rounds == jh.server_rounds == [1, 3, 4]
+    assert th.bytes_up == jh.bytes_up and th.bytes_down == jh.bytes_down
+    assert len(server_runs["tlogits"]) == len(server_runs["jlogits"]) == 3
+    for t, j in zip(server_runs["tlogits"], server_runs["jlogits"]):
+        np.testing.assert_allclose(t, j, atol=LOGIT_TOL, rtol=0)
+    teng = server_runs["teng"]
+    assert teng.bus.delta and teng.fed.uplink == teng.config.uplink
+    if teng.policy.selection == "ivf":
+        assert teng.policy._ivf is not None
+        assert int(teng.policy._ivf.active_rows().sum()) == teng.n_clients
+
+
+def test_config_validation():
+    assert FederationConfig().selection == "exact"
+    cfg = FederationConfig(selection="ivf", delta_graph=True, uplink="int8",
+                           downlink="int8")
+    assert cfg.selection == "ivf" and cfg.uplink == "int8"
+    with pytest.raises(ValueError, match="delta_graph"):
+        FederationConfig(selection="ivf")
+    with pytest.raises(ValueError, match="selection"):
+        FederationConfig(selection="bogus", delta_graph=True)
+    with pytest.raises(ValueError, match="uplink"):
+        FederationConfig(uplink="no-such-codec")
+    with pytest.raises(ValueError, match="downlink"):
+        FederationConfig(downlink="no-such-codec")
+    with pytest.raises(ValueError, match="no argument"):
+        FederationConfig(uplink="int8:3")
+    with pytest.raises(ValueError):
+        FederationConfig(rounds=-1)
+
+
 def test_build_defaults_to_the_card():
     """Without ``device=`` the engine goes to CUDA: on a machine without a
     card that is an error naming the CPU escape hatch, never a silent
@@ -161,3 +248,21 @@ def test_federate_cli_on_cpu(capsys):
     assert summary["device"] == "cpu" and summary["server_rounds"] == 2
     assert 0.0 <= summary["final_acc"] <= 1.0
     assert '"policy": "sqmd"' in capsys.readouterr().out
+
+
+def test_federate_cli_ivf_int8_on_cpu(capsys):
+    summary = federate.main(["--device", "cpu", "--rounds", "2",
+                             "--samples-per-client", "12", "--ref-size",
+                             "12", "--q", "4", "--k", "2", "--delta",
+                             "--selection", "ivf", "--uplink", "int8",
+                             "--downlink", "int8"])
+    assert summary["selection"] == "ivf" and summary["uplink"] == "int8"
+    assert summary["server_rounds"] == 2
+    ds = pad_like(samples_per_client=12, ref_size=12)
+    # int8 wire: R*(C+4) bytes a messenger each way, every round
+    assert summary["bytes_up"] == summary["bytes_down"] \
+        == 2 * ds.n_clients * 12 * (ds.n_classes + 4)
+    for bad in (["--selection", "ivf"], ["--uplink", "nope"],
+                ["--downlink", "int8:2"]):
+        with pytest.raises(SystemExit):
+            federate.main(["--device", "cpu", "--rounds", "1", *bad])

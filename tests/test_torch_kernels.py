@@ -10,7 +10,11 @@ Tolerances: fp32 inputs 1e-5 (pairwise_kl, neighbor_mean) and 1e-4
 (soft_ce, whose sums reach ~R*log C) — both sides reduce in fp32 in
 different orders. bf16 inputs reuse the reference suite's bounds (5e-2,
 0.3, 2e-2): the Pallas kernels round intermediates (exp(l) in
-pairwise_kl) to bf16 where the port keeps fp32.
+pairwise_kl) to bf16 where the port keeps fp32. The int8 strips
+(dequant_kl) agree to 1e-5: the plain version decodes with the zero point
+and ``torch.log_softmax``, the Pallas kernel with ``q·scale − lse`` and
+JAX's ``logsumexp``, which round differently in the last fp32 bits of
+log-probs of magnitude <= ~20.
 """
 import os
 import re
@@ -22,7 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import wire
 from repro_torch.kernels import build
+from repro_torch.kernels import dequant_kl as dk_mod
 from repro_torch.kernels import neighbor_mean as nm_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import pairwise_kl as pk_mod
@@ -42,11 +48,12 @@ def pallas():
     the ``gpu`` tests also run where JAX is not installed)."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
-    from repro.kernels import neighbor_mean, pairwise_kl, soft_ce
+    from repro.kernels import dequant_kl, neighbor_mean, pairwise_kl, soft_ce
     return types.SimpleNamespace(
         jnp=jnp, pairwise_kl=pairwise_kl.pairwise_kl,
         pairwise_kl_pair=pairwise_kl.pairwise_kl_pair,
-        soft_ce=soft_ce.soft_ce, neighbor_mean=neighbor_mean.neighbor_mean)
+        soft_ce=soft_ce.soft_ce, neighbor_mean=neighbor_mean.neighbor_mean,
+        dequant_kl=dequant_kl)
 
 
 def _log_softmax_np(x):
@@ -66,6 +73,22 @@ def _as_dtype(jnp, x: np.ndarray, dtype: str):
 def _messengers(n, r, c, seed):
     rng = np.random.default_rng(seed)
     return _log_softmax_np(rng.normal(size=(n, r, c)) * 2.0)
+
+
+def _int8_wire(logp: np.ndarray):
+    """The port's int8 payload fields (q uint8, scale/zp bf16) of logp."""
+    p = wire.encode("int8", torch.from_numpy(logp))
+    return p.arrays["q"], p.arrays["scale"], p.arrays["zp"]
+
+
+def _to_jax(jnp, q, s, z):
+    """The same wire arrays in JAX (bf16 carried over exactly via fp32)."""
+    return (jnp.asarray(q.numpy()),
+            jnp.asarray(s.float().numpy()).astype(jnp.bfloat16),
+            jnp.asarray(z.float().numpy()).astype(jnp.bfloat16))
+
+
+INT8_SHAPES = [(4, 8, 3), (7, 13, 5), (12, 40, 10), (37, 13, 5)]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -140,27 +163,79 @@ def test_neighbor_mean_matches_pallas(pallas, shape, dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_pairwise_kl_pair_matches_pallas(pallas, shape):
+    """B4's plain version against the Pallas kernel in interpret mode
+    with small (ragged) blocks, on the same int8 wire arrays."""
+    n, r, c = shape
+    u = max(1, n // 2 + 1)
+    a = _int8_wire(_messengers(u, r, c, 11))
+    b = _int8_wire(_messengers(n, r, c, 12))
+    want = np.asarray(pallas.dequant_kl.int8_pairwise_kl_pair(
+        *_to_jax(pallas.jnp, *a), *_to_jax(pallas.jnp, *b), bn=4, bm=8,
+        br=8, interpret=True))
+    got = ops.int8_pairwise_kl_pair(*a, *b)
+    assert got.dtype == torch.float32 and got.shape == (u, n)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES[:3])
+def test_int8_pairwise_kl_square_matches_pallas(pallas, shape, monkeypatch):
+    n, r, c = shape
+    w = _int8_wire(_messengers(n, r, c, 13))
+    want = np.asarray(pallas.dequant_kl.int8_pairwise_kl(
+        *_to_jax(pallas.jnp, *w), bn=4, bm=8, br=8, interpret=True))
+    np.testing.assert_allclose(ops.int8_pairwise_kl(*w).numpy(), want,
+                               atol=1e-5, rtol=1e-5)
+    # CHUNK_ROWS streaming: row strips concatenate to the whole matrix
+    # (the CPU product's blocking differs by shape: fp32 rounding only)
+    whole = ops.int8_pairwise_kl(*w)
+    monkeypatch.setattr(ops, "CHUNK_ROWS", 3)
+    np.testing.assert_allclose(ops.int8_pairwise_kl(*w).numpy(),
+                               whole.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_int8_row_stats_match_reference(pallas, monkeypatch):
+    """lse = logsumexp_c(q·scale), chunked (here into 3-row chunks)."""
+    q, s, _ = _int8_wire(_messengers(10, 6, 4, 14))
+    want = np.asarray(pallas.dequant_kl.int8_row_stats(
+        pallas.jnp.asarray(q.numpy()),
+        pallas.jnp.asarray(s.float().numpy())))
+    monkeypatch.setattr(dk_mod, "STATS_ELEMS", 3 * 6 * 4)
+    got = dk_mod.int8_row_stats(q, s)
+    assert got.dtype == torch.float32 and got.shape == (10, 6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-6)
+
+
 def test_cpu_calls_count_no_launches():
     ops.reset_launch_counts()
     t = torch.from_numpy(_messengers(5, 6, 3, 7))
     ops.pairwise_kl(t)
     ops.soft_ce(t, torch.zeros(6, dtype=torch.int32))
     ops.neighbor_mean(torch.eye(5), torch.exp(t))
+    q, s, z = _int8_wire(_messengers(5, 6, 3, 7))
+    ops.int8_pairwise_kl(q, s, z)
     assert ops.launch_counts() == {"pairwise_kl_pair": 0, "soft_ce": 0,
-                                   "neighbor_mean": 0}
+                                   "neighbor_mean": 0,
+                                   "int8_pairwise_kl_pair": 0}
 
 
-@pytest.mark.parametrize("call", ["pairwise_kl", "soft_ce", "neighbor_mean"])
+@pytest.mark.parametrize("call", ["pairwise_kl", "soft_ce", "neighbor_mean",
+                                  "int8_pairwise_kl"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor reaches the plain version: any other device goes
     to the kernel path, whose checks refuse what is not a CUDA tensor."""
     z = torch.empty((4, 6, 3), device="meta")
+    q = torch.empty((4, 6, 3), dtype=torch.uint8, device="meta")
+    s = torch.empty((4, 6), device="meta")
     args = {"pairwise_kl": (pk_mod.pairwise_kl_pair, (z, z)),
             "soft_ce": (sc_mod.soft_ce,
                         (z, torch.empty(6, dtype=torch.int32,
                                         device="meta"))),
             "neighbor_mean": (nm_mod.neighbor_mean,
-                              (torch.empty((4, 4), device="meta"), z))}
+                              (torch.empty((4, 4), device="meta"), z)),
+            "int8_pairwise_kl": (dk_mod.int8_pairwise_kl_pair,
+                                 (q, s, s, q, s, s))}
     fn, a = args[call]
     with pytest.raises(ValueError, match="CUDA"):
         fn(*a)
@@ -173,9 +248,14 @@ def test_shape_checks_raise():
         sc_mod.soft_ce(torch.zeros(2, 3, 4), torch.zeros(4, dtype=torch.int32))
     with pytest.raises(ValueError):
         nm_mod.neighbor_mean(torch.zeros(3, 3), torch.zeros(2, 3, 4))
+    q, s = torch.zeros(2, 3, 4, dtype=torch.uint8), torch.zeros(2, 3)
+    with pytest.raises(ValueError):
+        dk_mod.int8_pairwise_kl_pair(q, s, s, q[:, :, :3], s, s)
+    with pytest.raises(ValueError):
+        dk_mod.int8_pairwise_kl_pair(q, s[:, :2], s, q, s, s)
 
 
-@pytest.mark.parametrize("mod", [pk_mod, sc_mod, nm_mod],
+@pytest.mark.parametrize("mod", [pk_mod, sc_mod, nm_mod, dk_mod],
                          ids=lambda m: m.ENTRY)
 def test_wrapper_matches_its_c_entry_point(mod):
     """Each wrapper loads a source the build compiles and declares the
@@ -259,4 +339,27 @@ def test_cuda_kernels_match_plain(hopper, shape, dtype):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=tol, rtol=tol)
     assert ops.launch_counts() == {"pairwise_kl_pair": 2, "soft_ce": 1,
-                                   "neighbor_mean": 1}
+                                   "neighbor_mean": 1,
+                                   "int8_pairwise_kl_pair": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_SHAPES + [(1, 8, 10), (300, 8, 10)])
+def test_cuda_int8_kernel_matches_plain(hopper, shape):
+    """B4 against its plain version on the card, bf16 wire scale, square
+    and both strip orientations (1 x m and m x 1 included)."""
+    n, r, c = shape
+    q, s, z = (t.to(hopper) for t in _int8_wire(_messengers(n, r, c, 15)))
+    one = (q[:1].contiguous(), s[:1].contiguous(), z[:1].contiguous())
+    ops.reset_launch_counts()
+    for got, want in [
+            (ops.int8_pairwise_kl(q, s, z), ref.int8_pairwise_kl_ref(q, s, z)),
+            (ops.int8_pairwise_kl_pair(*one, q, s, z),
+             ref.int8_pairwise_kl_pair_ref(*one, q, s, z)),
+            (ops.int8_pairwise_kl_pair(q, s, z, *one),
+             ref.int8_pairwise_kl_pair_ref(q, s, z, *one))]:
+        torch.cuda.synchronize()
+        assert got.is_cuda and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+    assert ops.launch_counts()["int8_pairwise_kl_pair"] == 3
