@@ -11,10 +11,15 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 3. kernels: each CUDA kernel against its plain PyTorch version on the
    card, fp32 and bf16 inputs, at the server-round shape
    (N=4096, R=240, C=10), the federation's (32, 240, 3) and a ragged one
-   (37, 13, 5); then times (CUDA events, warm L2) of kernel, plain version
-   and one library call as a yardstick, beside each kernel's bound;
+   (37, 13, 5): the Eq. 2 split pass and 3xTF32 GEMM, Eq. 1, the Eq. 5
+   gather over neighbor lists (also held against the dense Eq. 5 kernel
+   on the same graph) and the dense Eq. 5 kernel; the Eq. 2 strip's error
+   against fp64, beside the plain version's; then times (CUDA events,
+   warm L2) of kernel, plain version and one library call as a
+   yardstick, beside each kernel's bound;
 4. server round: ``policy_round`` with sqmd(q=64, k=8) on a numpy-seeded
-   N=4096 repository, held against the same round on the plain versions;
+   N=4096 repository, held against the same round on the plain versions
+   (neighbor sets and targets), with its launch counts;
 5. federation (the main path): ``FederationEngine.fit`` on ``sc_like()``
    (32 clients, R=240, C=3), the three MLP tiers, sqmd(q=16, k=8),
    5 rounds, with launch counts read around it, every state tensor
@@ -40,10 +45,13 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    index's tensors checked to be on the card, eval logits held against
    the same run on the CPU;
 10. warm fit times of both federations, in turns (phase 5's fit is the
-    process's first);
+    process's first); phases 4, 7 and 10 also run one round or fit under
+    torch.profiler for the device time by kernel and the device's busy
+    share;
 11. a ``{"kernels": [...]}`` summary line (the int8 kernel's launches
-    from phase 9, the others' from phase 5), then the last line
-    ``{"ok": true, "device": {...}}``.
+    from phase 9, the others' from phase 5, where the dense Eq. 5 entry
+    launches 0 times: both SQMD graphs carry their neighbor lists), then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
 numbers also go to ``chiprun_out/chip_smoke.json``.
@@ -61,9 +69,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); every
-# timed kernel runs on fp32 inputs and fp32 CUDA-core FMAs
+# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W); the
+# timed kernels run on fp32 inputs: the Eq. 2 GEMM as three TF32 tensor-
+# core products (3xTF32), the others on fp32 CUDA-core FMAs
 PEAK_FP32_FLOPS = 67e12        # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # TF32 tensor cores
 PEAK_BYTES = 3.35e12           # HBM3
 
 SERVER = (4096, 240, 10)
@@ -81,7 +91,13 @@ CARD = "?"                     # nvidia-smi name, power limit (set in main)
 # fp32 reductions in another order than the plain version's: relative to
 # the magnitudes (divergences ~1-10, grades ~R log C, targets <= 1)
 TOL = {"pairwise_kl_pair": (1e-4, 1e-4), "soft_ce": (1e-3, 1e-5),
-       "neighbor_mean": (1e-6, 1e-5), "int8_pairwise_kl_pair": (1e-4, 1e-4)}
+       "neighbor_mean": (1e-6, 1e-5), "neighbor_gather": (1e-6, 1e-5),
+       "int8_pairwise_kl_pair": (1e-4, 1e-4),
+       # the split's hi + lo and row term (exp may differ in a last bit)
+       "pairwise_kl_split": (1e-5, 1e-5)}
+# the 3xTF32 strip's error against fp64 may be at most this multiple of
+# the fp32 plain version's (cuBLAS with TF32 off)
+FP64_ERR_RATIO = 2.0
 
 
 def check(ok: bool, msg: str) -> None:
@@ -125,6 +141,47 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def device_breakdown(label: str, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the CUDA kernels' device
+    time by name, their sum, and its share of the host wall time of the
+    call (the device's busy share; the profiler's own overhead lengthens
+    the wall time, so the share is a lower bound); and the host operators
+    with the most self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    host_top = [{"op": e.key[:40], "ms": e.self_cpu_time_total / 1e3,
+                 "count": e.count} for e in host]
+    print(f"  {label}: host operators by self CPU time: "
+          + "; ".join(f"{t['op']} {t['ms']:.3f} ms x{t['count']}"
+                      for t in host_top))
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print(f"  [{CARD}] {label}: device time not measured (the profiler "
+              f"recorded no CUDA kernel)")
+        return {"wall_ms": wall, "device_ms": None, "host_top": host_top}
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [{"kernel": e.key[:60], "ms": e.self_device_time_total / 1e3,
+            "count": e.count} for e in kernels[:6]]
+    print(f"  [{CARD}] {label} under the profiler: wall {wall:.2f} ms, "
+          f"device busy {device:.3f} ms ({device / wall:.1%}); by kernel: "
+          + "; ".join(f"{t['kernel']} {t['ms']:.3f} ms x{t['count']}"
+                      for t in top))
+    return {"wall_ms": wall, "device_ms": device,
+            "busy_share": device / wall, "top": top, "host_top": host_top}
+
+
 def errors(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """Max abs error, and max rel error over entries with |want| >= 1e-3
     (a divergence matrix's diagonal is ~0, where relative error says
@@ -136,14 +193,17 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> tuple:
     return float(d.max()), float((d[big] / want.abs()[big]).max())
 
 
-def sparse_weights(n: int, k: int, rng, dev) -> torch.Tensor:
-    """A row-stochastic W with k nonzeros of 1/k per row, no self-edge:
-    the shape of the selection matrix the main path hands neighbor_mean."""
+def sparse_weights(n: int, k: int, rng, dev) -> tuple:
+    """A graph of k neighbors per row, no self-edge, weight 1/k each: its
+    dense row-stochastic W (N,N), its lists (N,K) int32 and its slot
+    weights (N,K), the shapes the main path hands the Eq. 5 kernels."""
+    nbrs = np.stack([rng.choice(np.delete(np.arange(n), i), size=k,
+                                replace=False) for i in range(n)])
     w = np.zeros((n, n), np.float32)
-    for i in range(n):
-        others = np.delete(np.arange(n), i)
-        w[i, rng.choice(others, size=k, replace=False)] = 1.0 / k
-    return torch.from_numpy(w).to(dev)
+    np.put_along_axis(w, nbrs, 1.0 / k, axis=1)
+    return (torch.from_numpy(w).to(dev),
+            torch.from_numpy(nbrs.astype(np.int32)).to(dev),
+            torch.full((n, k), 1.0 / k, dtype=torch.float32, device=dev))
 
 
 def kernel_inputs(shape, dtype, dev, seed):
@@ -155,16 +215,56 @@ def kernel_inputs(shape, dtype, dev, seed):
     labels = rng.integers(0, c, r).astype(np.int32)
     if shape == RAGGED:
         labels[::4] = -1                       # padded reference rows
+    w, nbrs, slot_w = sparse_weights(n, min(8, n - 1), rng, dev)
     return {
         "logp": logp.to(dtype),
         "strip": logp[:min(n, CHUNK_ROWS)].to(dtype).contiguous(),
         "labels": torch.from_numpy(labels).to(dev),
-        "w": sparse_weights(n, min(8, n - 1), rng, dev),
+        "w": w, "nbrs": nbrs, "slot_w": slot_w,
         "probs": torch.exp(logp).to(dtype),
     }
 
 
+def split_case(a) -> tuple:
+    """The Eq. 2 split pass on the strip (A side) and the repository (B
+    side) against its plain version: (max abs error of hi + lo and of the
+    row term, whether both are within tolerance)."""
+    from repro_torch.kernels import pairwise_kl as pk
+    from repro_torch.kernels import ref
+    atol, rtol = TOL["pairwise_kl_split"]
+    err, ok = 0.0, True
+    for x, a_side in ((a["strip"], True), (a["logp"], False)):
+        got = pk.split(x, a_side)
+        planes, rowterm = ref.pairwise_kl_split_ref(x, a_side,
+                                                    got.planes.shape[2])
+        ok &= bool(((got.planes.view(torch.int32) & 0x1FFF) == 0).all())
+        pairs = [(got.planes.sum(0), planes.sum(0))]
+        if a_side:
+            pairs.append((got.rowterm, rowterm))
+        for g, w in pairs:
+            err = max(err, float((g - w).abs().max()))
+            ok &= torch.allclose(g, w, atol=atol, rtol=rtol)
+    return err, ok
+
+
+def fp64_errors(a) -> tuple:
+    """Max abs error against an fp64 evaluation of the same inputs, of the
+    3xTF32 strip and of the fp32 plain version."""
+    from repro_torch.kernels import ops, ref
+    la, lb = a["strip"], a["logp"]
+    r = la.shape[1]
+    a64 = la.reshape(la.shape[0], -1).double()
+    b64 = lb.reshape(lb.shape[0], -1).double()
+    pa = a64.exp()
+    truth = ((pa * a64).sum(1)[:, None] - pa @ b64.T) / r
+    got = ops.pairwise_kl_pair(la, lb).double()
+    plain = ref.pairwise_kl_pair_ref(la, lb).double()
+    return (float((got - truth).abs().max()),
+            float((plain - truth).abs().max()))
+
+
 def kernel_phase(dev) -> dict:
+    from repro_torch.kernels import neighbor_gather as ng
     from repro_torch.kernels import neighbor_mean as nm
     from repro_torch.kernels import pairwise_kl as pk
     from repro_torch.kernels import soft_ce as sc
@@ -176,6 +276,10 @@ def kernel_phase(dev) -> dict:
                                                                 a["logp"])),
         "soft_ce": (lambda a: sc.soft_ce(a["logp"], a["labels"]),
                     lambda a: ref.soft_ce_ref(a["logp"], a["labels"])),
+        "neighbor_gather": (
+            lambda a: ng.neighbor_gather(a["nbrs"], a["slot_w"], a["probs"]),
+            lambda a: ref.neighbor_gather_ref(a["nbrs"], a["slot_w"],
+                                              a["probs"])),
         "neighbor_mean": (lambda a: nm.neighbor_mean(a["w"], a["probs"]),
                           lambda a: ref.neighbor_mean_ref(a["w"],
                                                           a["probs"])),
@@ -184,6 +288,7 @@ def kernel_phase(dev) -> dict:
     for shape in (SERVER, FEDERATION, RAGGED):
         for dtype in (torch.float32, torch.bfloat16):
             a = kernel_inputs(shape, dtype, dev, seed=sum(shape))
+            dt = str(dtype)[6:]
             for name, (kern, plain) in cases.items():
                 got, want = kern(a), plain(a)
                 torch.cuda.synchronize()
@@ -193,61 +298,125 @@ def kernel_phase(dev) -> dict:
                 ea, er = errors(got, want)
                 atol, rtol = TOL[name]
                 ok = torch.allclose(got, want, atol=atol, rtol=rtol)
-                print(f"  {name:17s} {str(shape):16s} "
-                      f"{str(dtype)[6:]:9s} max_abs={ea:.3e} "
-                      f"max_rel={er:.3e} atol={atol:g} rtol={rtol:g} "
-                      f"{'ok' if ok else 'FAIL'}")
+                print(f"  {name:17s} {str(shape):16s} {dt:9s} "
+                      f"max_abs={ea:.3e} max_rel={er:.3e} atol={atol:g} "
+                      f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
                 check(ok, f"{name} {shape} {dtype} disagrees with its "
                           f"plain version")
                 if shape == SERVER and dtype == torch.float32:
                     err[name] = ea
+            es, ok = split_case(a)
+            print(f"  {'pairwise_kl_split':17s} {str(shape):16s} {dt:9s} "
+                  f"max_abs={es:.3e} (hi + lo, row term; TF32 planes) "
+                  f"{'ok' if ok else 'FAIL'}")
+            check(ok, f"pairwise_kl_split {shape} {dtype} disagrees with "
+                      f"its plain version")
+            # the gather and the dense kernel on the same graph
+            g = ng.neighbor_gather(a["nbrs"], a["slot_w"], a["probs"])
+            d = nm.neighbor_mean(a["w"], a["probs"])
+            atol, rtol = TOL["neighbor_mean"]
+            ok = torch.allclose(g, d, atol=atol, rtol=rtol)
+            print(f"  neighbor_gather vs the dense kernel on one graph: "
+                  f"max_abs={errors(g, d)[0]:.3e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"neighbor_gather and neighbor_mean disagree on one "
+                      f"graph at {shape} {dtype}")
+            if shape == SERVER and dtype == torch.float32:
+                err["pairwise_kl_split"] = es
 
     # times at the server-round shape, fp32 (the main path's dtype)
     a = kernel_inputs(SERVER, torch.float32, dev, seed=sum(SERVER))
+    e_kern, e_plain = fp64_errors(a)
+    print(f"  pairwise_kl_pair {SERVER} against fp64: 3xTF32 kernel "
+          f"max_abs={e_kern:.3e}, fp32 plain version max_abs={e_plain:.3e} "
+          f"(ratio {e_kern / e_plain:.3f}, limit {FP64_ERR_RATIO:g})")
+    check(e_kern <= FP64_ERR_RATIO * e_plain,
+          "the 3xTF32 strip is less accurate than the fp32 plain version "
+          "allows")
     n, r, c = SERVER
     u, k = a["strip"].shape[0], r * c
+    split_a, split_b = pk.split(a["strip"], True), pk.split(a["logp"], False)
+    k_pad = split_a.planes.shape[2]
     pa = torch.exp(a["strip"].reshape(u, k))
     lb_t = a["logp"].reshape(n, k).T
     z = a["logp"]
     y_idx = a["labels"].long()[None, :, None].expand(n, -1, 1)
     s_flat = a["probs"].reshape(n, k)
     nnz = int((a["w"] != 0).sum())
+    slots = a["nbrs"].numel()
+    used = int(torch.unique(a["nbrs"][a["slot_w"] != 0]).numel())
     w_csr = a["w"].to_sparse_csr()
+    kern_fn = {
+        "pairwise_kl_split": lambda: (pk.split(a["strip"], True),
+                                      pk.split(a["logp"], False)),
+        "pairwise_kl_pair": lambda: pk.gemm(split_a, split_b),
+    }
+    plain_fn = {
+        "pairwise_kl_split": lambda: (
+            ref.pairwise_kl_split_ref(a["strip"], True, k_pad),
+            ref.pairwise_kl_split_ref(a["logp"], False, k_pad)),
+    }
     library = {
+        "pairwise_kl_split": None,
         "pairwise_kl_pair": lambda: torch.matmul(pa, lb_t),
         "soft_ce": lambda: (torch.logsumexp(z, dim=-1),
                             torch.gather(z, 2, y_idx)),
+        "neighbor_gather": lambda: torch.sparse.mm(w_csr, s_flat),
         "neighbor_mean": lambda: torch.matmul(a["w"], s_flat),
     }
-    work = {   # (flops, bytes) the function needs on these inputs
-        "pairwise_kl_pair": (2.0 * u * n * k + 2.0 * u * k,
-                             4.0 * (u * k + n * k + u * n)),
-        "soft_ce": (4.0 * n * r * c, 4.0 * (n * r * c + r + n)),
+    work = {   # (flops, bytes, peak flop/s) the function needs on these inputs
+        # read l once, write the hi and lo planes and the row term
+        "pairwise_kl_split": (2.0 * u * k, 4.0 * (u + n) * k
+                              + 8.0 * (u + n) * k_pad + 4.0 * u,
+                              PEAK_FP32_FLOPS),
+        # three TF32 products keep fp32-level accuracy (3xTF32)
+        "pairwise_kl_pair": (3 * 2.0 * u * n * k,
+                             4.0 * (u * k + n * k + u * n), PEAK_TF32_FLOPS),
+        "soft_ce": (4.0 * n * r * c, 4.0 * (n * r * c + r + n),
+                    PEAK_FP32_FLOPS),
+        # the rows of S some list references, the lists, T
+        "neighbor_gather": (2.0 * nnz * k,
+                            4.0 * used * k + 8.0 * slots + 4.0 * n * k,
+                            PEAK_FP32_FLOPS),
         # W has k nonzeros per row: the product needs 2 nnz RC flops;
         # the dense interface still reads all of W
-        "neighbor_mean": (2.0 * nnz * k, 4.0 * (n * n + 2 * n * k)),
+        "neighbor_mean": (2.0 * nnz * k, 4.0 * (n * n + 2 * n * k),
+                          PEAK_FP32_FLOPS),
     }
-    iters = {"pairwise_kl_pair": 10, "soft_ce": 200, "neighbor_mean": 10}
+    iters = {"pairwise_kl_split": 50, "pairwise_kl_pair": 10, "soft_ce": 200,
+             "neighbor_gather": 100, "neighbor_mean": 10}
     rows = {}
-    for name, (kern, plain) in cases.items():
-        t_kern = cuda_ms(lambda: kern(a), iters[name])
-        t_plain = cuda_ms(lambda: plain(a), iters[name])
-        t_lib = cuda_ms(library[name], iters[name])
-        flops, nbytes = work[name]
-        t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    for name in work:
+        kern = kern_fn.get(name) or (lambda: cases[name][0](a))
+        plain = plain_fn.get(name) or (lambda: cases[name][1](a))
+        t_kern = cuda_ms(kern, iters[name])
+        t_plain = cuda_ms(plain, iters[name])
+        t_lib = cuda_ms(library[name], iters[name]) if library[name] \
+            else None
+        flops, nbytes, peak = work[name]
+        t_ops = flops / peak * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         rows[name] = {"ms": t_kern, "plain_ms": t_plain, "library_ms": t_lib,
                       "bound_ms": bound,
                       "bound_by": "operations" if t_ops >= t_bytes
                       else "bytes",
-                      "flops": flops, "bytes": nbytes,
+                      "flops": flops, "bytes": nbytes, "peak_flops": peak,
                       "max_abs_err": err[name]}
+        lib = f"{t_lib:.4f} ms" if t_lib is not None else "none"
         print(f"  time [{CARD}] {name:17s} kernel={t_kern:.4f} ms "
-              f"plain={t_plain:.4f} ms library={t_lib:.4f} ms "
+              f"plain={t_plain:.4f} ms library={lib} "
               f"bound={bound:.4f} ms ({rows[name]['bound_by']}; "
-              f"{flops:.4g} flop, {nbytes:.4g} B) "
+              f"{flops:.4g} flop at {peak:.3g}/s, {nbytes:.4g} B) "
               f"share={bound / t_kern:.3%}")
+    # the Eq. 2 strip as the server calls it: split pass and GEMM
+    t_wrap = cuda_ms(lambda: cases["pairwise_kl_pair"][0](a), 10)
+    rows["pairwise_kl_pair"].update(
+        {"wrapper_ms": t_wrap, "fp64_max_abs_err": e_kern,
+         "plain_fp64_max_abs_err": e_plain})
+    print(f"  time [{CARD}] pairwise_kl_pair {u} x {n} strip, split "
+          f"included: {t_wrap:.4f} ms (GEMM alone "
+          f"{rows['pairwise_kl_pair']['ms']:.4f} ms, torch.matmul cross "
+          f"term {rows['pairwise_kl_pair']['library_ms']:.4f} ms)")
     # the federation's own shape: launch-overhead territory
     af = kernel_inputs(FEDERATION, torch.float32, dev, seed=sum(FEDERATION))
     for name, (kern, plain) in cases.items():
@@ -256,18 +425,17 @@ def kernel_phase(dev) -> dict:
         print(f"  time [{CARD}] {name:17s} at {FEDERATION}: "
               f"kernel={rows[name]['federation_ms']:.4f} ms "
               f"plain={rows[name]['federation_plain_ms']:.4f} ms")
-    # what a sparse product of the same W costs (the B3 redesign's target)
-    t_sparse = cuda_ms(lambda: torch.sparse.mm(w_csr, s_flat), 10)
-    print(f"  time [{CARD}] neighbor_mean as torch.sparse.mm (CSR W, "
-          f"{nnz} nonzeros): "
-          f"{t_sparse:.4f} ms")
-    rows["neighbor_mean"]["sparse_library_ms"] = t_sparse
-    # the square matrix of a server round is two CHUNK_ROWS strips
+    # what a sparse product of the same W costs (the dense entry's yardstick
+    # on a sparse graph)
+    rows["neighbor_mean"]["sparse_library_ms"] = \
+        rows["neighbor_gather"]["library_ms"]
+    # the square matrix of a server round: one split of each side, then
+    # two CHUNK_ROWS strips over the same planes
     from repro_torch.kernels import ops
     t_square = cuda_ms(lambda: ops.pairwise_kl(a["logp"]), 5)
-    print(f"  time [{CARD}] pairwise_kl square N={n} (two strips) "
-          f"kernel={t_square:.4f} ms, dense-work bound "
-          f"{2.0 * n * n * k / PEAK_FP32_FLOPS * 1e3:.4f} ms")
+    print(f"  time [{CARD}] pairwise_kl square N={n} (two splits, two "
+          f"strips) kernel={t_square:.4f} ms, 3xTF32 bound "
+          f"{3 * 2.0 * n * n * k / PEAK_TF32_FLOPS * 1e3:.4f} ms")
     rows["pairwise_kl_pair"]["square_ms"] = t_square
     print(f"  card during timing: clocks.sm,power.draw,temperature.gpu = "
           f"{smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -318,15 +486,17 @@ def server_phase(dev) -> dict:
                                                   lp)
                          for i in range(0, n, ops.CHUNK_ROWS)])
         g = select_neighbors_from_div(div, cand, k)
-        return ref.neighbor_mean_ref(g.weights, torch.exp(lp)), g
+        return ref.neighbor_gather_ref(g.neighbors, g.slot_weights,
+                                       torch.exp(lp)), g
 
     policy_round(state, pol, labels)                     # warm-up
     plain_round()
     ops.reset_launch_counts()
     (_, targets, graph), _ = timed(lambda: policy_round(state, pol, labels))
     counts = ops.launch_counts()
-    check(counts == {"pairwise_kl_pair": 2, "soft_ce": 1,
-                     "neighbor_mean": 1, "int8_pairwise_kl_pair": 0},
+    check(counts == {"pairwise_kl_split": 2, "pairwise_kl_pair": 2,
+                     "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
+                     "int8_pairwise_kl_pair": 0},
           f"server round launched {counts}")
     t_kern, t_plain = [], []
     for _ in range(3):                       # in turns: kernels, plain
@@ -345,9 +515,11 @@ def server_phase(dev) -> dict:
     print(f"  targets max abs err on rows with equal neighbors: {t_err:.3e}")
     check(t_err <= 1e-6, "targets disagree with the plain round")
     check(bool(torch.isfinite(targets).all()), "non-finite targets")
+    trace = device_breakdown(f"policy_round N={n}",
+                             lambda: policy_round(state, pol, labels))
     return {"kernel_ms": t_kern, "plain_ms": t_plain,
             "launches": counts, "neighbor_rows_differing": n_diff,
-            "targets_max_abs_err": t_err}
+            "targets_max_abs_err": t_err, "profile": trace}
 
 
 def federation(dev, splits, ds, init_params, draws, logits_out, server):
@@ -422,6 +594,8 @@ def federation_phase(dev, server: dict, path: tuple, inputs) -> dict:
     print(f"  [{CARD}] fit: {wall:.3f} s for 5 rounds, launches {counts}")
     check(all(counts[k] > 0 for k in path),
           f"a kernel of this path never launched: {counts}")
+    check(counts["neighbor_mean"] == 0,
+          "the dense Eq. 5 kernel ran where the graph carries its lists")
 
     fed = eng.fed
     tensors = [fed.ref_x, fed.ref_y, fed.targets, *fed.server]
@@ -479,6 +653,9 @@ def warm_fits(dev, inputs) -> dict:
     print(f"  [{CARD}] warm 5-round fits: dense "
           f"{', '.join(f'{t:.3f}' for t in out['dense'])} s; IVF/int8 "
           f"{', '.join(f'{t:.3f}' for t in out['ivf'])} s")
+    eng = federation(dev, splits, ds, init_params, draws, [], {})
+    out["dense_profile"] = device_breakdown("warm dense 5-round fit",
+                                            lambda: eng.fit(splits))
     return out
 
 
@@ -595,7 +772,8 @@ def delta_phase(dev) -> dict:
     (new, targets, graph), _ = timed(
         lambda: policy_round(state, pol, labels, uploaded=mask))
     counts = ops.launch_counts()
-    check(counts == {"pairwise_kl_pair": 2, "soft_ce": 1, "neighbor_mean": 1,
+    check(counts == {"pairwise_kl_split": 4, "pairwise_kl_pair": 2,
+                     "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
                      "int8_pairwise_kl_pair": 0},
           f"delta round launched {counts}")
     rebuilt = ops.pairwise_kl(state.repo_logp)
@@ -616,9 +794,12 @@ def delta_phase(dev) -> dict:
     print(f"  [{CARD}] policy_round N={n}, {DELTA_ROWS} fresh rows: delta "
           f"{', '.join(f'{t:.2f}' for t in t_delta)} ms; full rebuild "
           f"{', '.join(f'{t:.2f}' for t in t_full)} ms")
+    trace = device_breakdown(
+        f"delta policy_round N={n}",
+        lambda: policy_round(state, pol, labels, uploaded=mask))
     return {"launches": counts, "cache_max_abs_err": err,
             "targets_max_abs_err": t_err, "delta_ms": t_delta,
-            "full_ms": t_full}
+            "full_ms": t_full, "profile": trace}
 
 
 def gen_logp(rng, protos, count: int) -> np.ndarray:
@@ -779,18 +960,25 @@ def ivf_phase(dev) -> dict:
 
 
 SOURCES = {
+    "pairwise_kl_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
+                          "src/repro/kernels/pairwise_kl.py:37"),
     "pairwise_kl_pair": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                          "src/repro/kernels/pairwise_kl.py:37"),
     "soft_ce": ("src/repro_torch/kernels/csrc/soft_ce.cu",
                 "src/repro/kernels/soft_ce.py:25"),
+    "neighbor_gather": ("src/repro_torch/kernels/csrc/neighbor_gather.cu",
+                        "src/repro/kernels/neighbor_mean.py:25"),
     "neighbor_mean": ("src/repro_torch/kernels/csrc/neighbor_mean.cu",
                       "src/repro/kernels/neighbor_mean.py:25"),
     "int8_pairwise_kl_pair": ("src/repro_torch/kernels/csrc/dequant_kl.cu",
                               "src/repro/kernels/dequant_kl.py:39"),
 }
-# the kernels each federation must launch
-DENSE_PATH = ("pairwise_kl_pair", "soft_ce", "neighbor_mean")
-IVF_PATH = ("pairwise_kl_pair", "int8_pairwise_kl_pair")
+# the kernels each federation must launch (the dense Eq. 5 entry is on
+# neither: both SQMD graphs carry their neighbor lists)
+DENSE_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "soft_ce",
+              "neighbor_gather")
+IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair",
+            "int8_pairwise_kl_pair", "neighbor_gather")
 IVF_SERVER = dict(delta_graph=True, selection="ivf", uplink="int8")
 
 
@@ -855,7 +1043,8 @@ def main() -> int:
     fits = warm_fits(dev, inputs)
 
     # each kernel's launches come from the federation whose path it is
-    # on: B1-B3 the main path's, the int8 kernel the IVF federation's
+    # on: B1-B3 the main path's (0 for the dense Eq. 5 entry, which is on
+    # no SQMD path), the int8 kernel the IVF federation's
     launches = dict(fedres["launches"])
     launches["int8_pairwise_kl_pair"] = \
         ivf_fed["launches"]["int8_pairwise_kl_pair"]

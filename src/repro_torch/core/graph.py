@@ -2,8 +2,9 @@
 
 Each round the server re-derives every client's neighbor set K^n — the K
 most-similar members of the quality pool Q, never the client itself —
-and the row-stochastic selection matrix W (1/K on chosen edges) that the
-``neighbor_mean`` kernel consumes.
+with the weight of each neighbor slot (1/K on chosen edges), which the
+``neighbor_gather`` kernel consumes, and the row-stochastic selection
+matrix W those slots scatter to.
 """
 from __future__ import annotations
 
@@ -22,10 +23,13 @@ class CollaborationGraph(NamedTuple):
     candidates: torch.Tensor     # (N,) bool — the Q pool
     divergence: Optional[torch.Tensor] = None  # (N,N) Eq. 2 matrix it was
     # built from, when the policy computed one
+    slot_weights: Optional[torch.Tensor] = None  # (N, K) fp32 weight of
+    # each neighbor slot, 0 on unrealized ones: W's nonzeros, by slot
 
 
 def _topk_weights(sub: torch.Tensor, pool: torch.Tensor, k: int):
-    """(N,B) masked pool scores -> ((N,K) neighbors, (N,N) weights).
+    """(N,B) masked pool scores -> ((N,K) neighbors, (N,N) weights, (N,K)
+    slot weights).
 
     A stable descending sort takes the first k, so equal scores go to the
     lower pool position (= lower client index), as ``jax.lax.top_k``
@@ -42,7 +46,7 @@ def _topk_weights(sub: torch.Tensor, pool: torch.Tensor, k: int):
     # duplicates only come from unrealized slots, which add exactly 0
     w.index_put_((rows, nbrs.reshape(-1).long()), vals.reshape(-1),
                  accumulate=True)
-    return nbrs, w
+    return nbrs, w, vals
 
 
 def _select_pool(similarity: torch.Tensor, candidates: torch.Tensor,
@@ -71,7 +75,8 @@ def _select_pool(similarity: torch.Tensor, candidates: torch.Tensor,
 
 def _empty(n: int, k: int, device) -> tuple:
     return (torch.zeros((n, k), dtype=torch.int32, device=device),
-            torch.zeros((n, n), dtype=torch.float32, device=device))
+            torch.zeros((n, n), dtype=torch.float32, device=device),
+            torch.zeros((n, k), dtype=torch.float32, device=device))
 
 
 def select_neighbors(similarity: torch.Tensor, candidates: torch.Tensor,
@@ -85,9 +90,11 @@ def select_neighbors(similarity: torch.Tensor, candidates: torch.Tensor,
     n = similarity.shape[0]
     k = min(k, n - 1)
     sel = _select_pool(similarity, candidates, k)
-    nbrs, w = sel if sel is not None else _empty(n, k, similarity.device)
+    nbrs, w, vals = sel if sel is not None else _empty(n, k,
+                                                       similarity.device)
     return CollaborationGraph(neighbors=nbrs, weights=w,
-                              similarity=similarity, candidates=candidates)
+                              similarity=similarity, candidates=candidates,
+                              slot_weights=vals)
 
 
 def select_neighbors_from_div(divergence: torch.Tensor,

@@ -101,8 +101,14 @@ class ServerPolicy(abc.ABC):
         return self.build_graph(state, quality)
 
     def emit_targets(self, state, graph) -> torch.Tensor:
-        """(N,R,C) fp32 probability targets: the K^n neighbor mean."""
-        return ops.neighbor_mean(graph.weights, torch.exp(state.repo_logp))
+        """(N,R,C) fp32 probability targets: the K^n neighbor mean, gathered
+        over the neighbor lists when the graph carries its slot weights,
+        else the product with the dense W."""
+        probs = torch.exp(state.repo_logp)
+        if graph.slot_weights is not None:
+            return ops.neighbor_gather(graph.neighbors, graph.slot_weights,
+                                       probs)
+        return ops.neighbor_mean(graph.weights, probs)
 
     def receivers(self, state, graph) -> torch.Tensor:
         """(N,) bool — clients a K^n downlink payload is sent to: every

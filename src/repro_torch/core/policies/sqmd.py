@@ -89,4 +89,4 @@ class SQMDPolicy(ServerPolicy):
                        accumulate=True)
         return graph_mod.CollaborationGraph(
             neighbors=safe.int(), weights=w, similarity=sim,
-            candidates=cand)
+            candidates=cand, slot_weights=vals)

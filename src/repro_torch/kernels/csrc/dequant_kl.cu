@@ -21,7 +21,7 @@
 // cancels and 1/d ranks neighbors) with loaders that dequantize. Each
 // thread reads the uint8 code at flat k and the scale/lse of (row, k / C)
 // and forms l in registers; for A it applies exp and accumulates the row
-// term in the same k loop, as pairwise_kl.cu does. The fp32 (N, R, C)
+// term in the same k loop. The fp32 (N, R, C)
 // decode never exists in device memory, which is what the TPU kernel was
 // written for. Ragged edges are masked in the load (a masked A element
 // gives p = 0 and adds nothing to the row term, a masked B element is 0,

@@ -1,5 +1,6 @@
-// Shared fp32 tiling for the GEMM-shaped server kernels
-// (pairwise_kl.cu, neighbor_mean.cu, dequant_kl.cu).
+// Shared fp32 FFMA tiling of dequant_kl.cu (B4, the int8 Eq. 2 strip) and
+// neighbor_mean.cu (the dense Eq. 5 entry). pairwise_kl.cu (B1) no longer
+// uses it: it runs 3xTF32 on wgmma with its own TMA pipeline.
 //
 // A block owns one BM x BN output tile and walks the whole contraction
 // axis itself in BK-deep steps (the Pallas grid's sequential k axis
@@ -12,9 +13,11 @@
 // padded by one float per row, which spreads the transposing stores over
 // the banks.
 //
-// Products are fp32 FFMA on the CUDA cores. No TF32 tensor-core path: the
-// divergence rowterm - cross cancels heavily and its reciprocal ranks the
-// neighbors, so the inputs keep their full fp32 mantissas.
+// Products are fp32 FFMA on the CUDA cores. No plain TF32 tensor-core
+// path for B4: the divergence rowterm - cross cancels heavily and its
+// reciprocal ranks the neighbors, so the inputs keep their full fp32
+// mantissas (B1's split into TF32 hi and lo parts is the way to the
+// tensor cores that keeps them).
 #pragma once
 
 #include <cuda_bf16.h>

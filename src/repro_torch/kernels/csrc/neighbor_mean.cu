@@ -1,20 +1,24 @@
-// Eq. 5 distillation targets on Hopper: T = W S, W (N x N) fp32 row-
-// stochastic selection weights, S (N x RC) messenger probabilities.
+// Eq. 5 distillation targets on Hopper, the dense entry: T = W S, W
+// (N x N) fp32 row-stochastic selection weights, S (N x RC) messenger
+// probabilities.
 //
 // Replaces: src/repro/kernels/neighbor_mean.py::_kernel, the Pallas TPU
-// kernel behind neighbor_mean.
+// kernel behind neighbor_mean, for a dense W. The policies' sparse graphs
+// (<= K nonzeros a row) take neighbor_gather.cu instead; this entry is
+// kept for graphs with ~N nonzeros a row (FedMD's complete graph) and is
+// off the SQMD path.
 //
-// Bound on this card: bytes. W has at most K nonzeros per row
-// (graph.py:64-77), so the work the data needs is 2 nnz(W) RC flops,
-// while the dense interface still reads all of W (N^2 floats) plus S and
-// writes T: at N = 4096, RC = 2400 that is ~145 MB, ~43 us at 3.35 TB/s.
+// Bound on this card: bytes for a sparse W, operations for a dense one.
+// A dense W is N^2 RC multiply-adds over N^2 + 2 N RC values: at N = 4096,
+// RC = 2400 that is 80 GFLOP, ~1.2 ms at 67 TFLOP/s. With at most K
+// nonzeros a row the work the data needs is 2 nnz(W) RC flops, while this
+// interface still reads all of W (N^2 floats) plus S and writes T: ~145
+// MB, ~43 us at 3.35 TB/s.
 //
-// Design: this PR keeps the TPU kernel's dense interface and runs it as
-// a dense fp32 GEMM under the same tiling as pairwise_kl.cu
-// (gemm_tile.cuh), with a plain store epilogue. It therefore does
-// N^2 RC multiply-adds, most of them by zero, and sits far above its
-// bound; a gather over the <= K neighbors of each row is the redesign
-// that reaches it (ROADMAP, Queue 2 B3).
+// Design: the TPU kernel's dense interface as a dense fp32 FFMA GEMM
+// under the tiling of gemm_tile.cuh, with a plain store epilogue. It does
+// N^2 RC multiply-adds whatever W holds; neighbor_gather.cu does the
+// K N RC that a sparse W needs.
 #include "gemm_tile.cuh"
 
 namespace {

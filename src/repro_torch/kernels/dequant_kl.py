@@ -21,7 +21,8 @@ from repro_torch.kernels.ref import int8_pairwise_kl_pair_ref as plain
 
 # csrc/<SOURCE>.cu, its C entry point, and the entry point's device
 # pointers and ints (the stream comes last)
-SOURCE, ENTRY, ARGS = "dequant_kl", "int8_pairwise_kl_pair", (7, 4)
+SOURCE, ENTRY = "dequant_kl", "int8_pairwise_kl_pair"
+ENTRIES = {ENTRY: (7, 4)}
 SCALE_DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64                 # rows and columns of one block's output tile
 MAX_ROW_TILES = 65535     # the launch grid's y limit (row tiles)
@@ -107,7 +108,7 @@ def launch(qa: torch.Tensor, sa: torch.Tensor, la: torch.Tensor,
     if out.numel() == 0:
         return out
     global launches
-    fn = build.entry(SOURCE, ENTRY, *ARGS)
+    fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
     code = fn(qa.data_ptr(), sa.data_ptr(), la.data_ptr(), qb.data_ptr(),
               sb.data_ptr(), lb.data_ptr(), out.data_ptr(), u, m, r, c,
               torch.cuda.current_stream(dev).cuda_stream)

@@ -14,7 +14,8 @@ from repro_torch.kernels.ref import neighbor_mean_ref as plain
 
 # csrc/<SOURCE>.cu, its C entry point, and the entry point's device
 # pointers and ints (the stream comes last)
-SOURCE, ENTRY, ARGS = "neighbor_mean", "neighbor_mean", (3, 3)
+SOURCE, ENTRY = "neighbor_mean", "neighbor_mean"
+ENTRIES = {ENTRY: (3, 3)}
 DTYPES = (torch.float32, torch.bfloat16)
 launches = 0
 
@@ -42,7 +43,7 @@ def neighbor_mean(w: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     global launches
-    fn = build.entry(SOURCE, ENTRY, *ARGS)
+    fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
     code = fn(w.data_ptr(), probs.data_ptr(), out.data_ptr(), n, r * c,
               int(probs.dtype == torch.bfloat16),
               torch.cuda.current_stream(probs.device).cuda_stream)

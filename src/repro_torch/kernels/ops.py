@@ -13,6 +13,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import dequant_kl as _dk
+from repro_torch.kernels import neighbor_gather as _ng
 from repro_torch.kernels import neighbor_mean as _nm
 from repro_torch.kernels import pairwise_kl as _pk
 from repro_torch.kernels import soft_ce as _sc
@@ -21,29 +22,31 @@ from repro_torch.kernels import soft_ce as _sc
 # strips instead of one call, bounding each call's output and scratch.
 CHUNK_ROWS = 2048
 
-_MODULES = {"pairwise_kl_pair": _pk, "soft_ce": _sc, "neighbor_mean": _nm,
-            "int8_pairwise_kl_pair": _dk}
+# each kernel's launch counter: (wrapper module, attribute)
+_COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
+             "pairwise_kl_pair": (_pk, "launches"),
+             "soft_ce": (_sc, "launches"),
+             "neighbor_gather": (_ng, "launches"),
+             "neighbor_mean": (_nm, "launches"),
+             "int8_pairwise_kl_pair": (_dk, "launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel (plain-version calls not counted)."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def pairwise_kl(logp: torch.Tensor) -> torch.Tensor:
-    """Eq. 2 divergence matrix, logp (N,R,C) -> (N,N) fp32; N > CHUNK_ROWS
-    is computed as independent CHUNK_ROWS x N row strips, concatenated."""
-    logp = logp.contiguous()
-    n = logp.shape[0]
-    if n > CHUNK_ROWS:
-        return torch.cat([pairwise_kl_pair(logp[i:i + CHUNK_ROWS], logp)
-                          for i in range(0, n, CHUNK_ROWS)], dim=0)
-    return pairwise_kl_pair(logp, logp)
+    """Eq. 2 divergence matrix, logp (N,R,C) -> (N,N) fp32, computed as
+    independent CHUNK_ROWS x N row strips, concatenated; on the card the
+    repository is split once for all strips."""
+    return _pk.pairwise_kl(logp.contiguous(), CHUNK_ROWS)
 
 
 def pairwise_kl_pair(logp_a: torch.Tensor,
@@ -87,5 +90,14 @@ def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def neighbor_mean(w: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-    """Eq. 5 targets. w (N,N), probs (N,R,C) -> (N,R,C) fp32."""
+    """Eq. 5 targets on a dense W (FedMD's complete graph). w (N,N),
+    probs (N,R,C) -> (N,R,C) fp32."""
     return _nm.neighbor_mean(w.float().contiguous(), probs.contiguous())
+
+
+def neighbor_gather(nbrs: torch.Tensor, w: torch.Tensor,
+                    probs: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 targets over the neighbor lists of a sparse graph: nbrs (N,K)
+    indices, w (N,K) slot weights, probs (N,R,C) -> (N,R,C) fp32."""
+    return _ng.neighbor_gather(nbrs.to(torch.int32).contiguous(),
+                               w.float().contiguous(), probs.contiguous())

@@ -28,6 +28,42 @@ def pairwise_kl_pair_ref(logp_a: torch.Tensor,
     return (rowterm[:, None] - cross) / r
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 explicit mantissa bits), to nearest
+    with ties away from zero as ``cvt.rna.tf32.f32`` rounds, on the bits:
+    the 13 low mantissa bits come out zero. Finite inputs only."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pairwise_kl_split_ref(logp: torch.Tensor, a_side: bool, k_pad: int):
+    """The split pass of the 3xTF32 Eq. 2 strip: logp (rows,R,C) ->
+    (planes (2, rows, k_pad) fp32, rowterm (rows,) fp32 or None).
+
+    x is p = exp(l) on the A side and l on the B side; planes[0] holds
+    hi(x) = tf32(x), planes[1] lo(x) = tf32(x - hi(x)), zero past R*C.
+    The A side also returns rowterm = sum_k p l."""
+    rows = logp.shape[0]
+    lf = logp.float().reshape(rows, -1)
+    x = torch.exp(lf) if a_side else lf
+    hi = tf32_round(x)
+    planes = torch.zeros((2, rows, k_pad), dtype=torch.float32,
+                         device=logp.device)
+    planes[0, :, :x.shape[1]] = hi
+    planes[1, :, :x.shape[1]] = tf32_round(x - hi)
+    return planes, (torch.sum(x * lf, dim=-1) if a_side else None)
+
+
+def pairwise_kl_gemm_ref(a_planes: torch.Tensor, rowterm: torch.Tensor,
+                         b_planes: torch.Tensor, r: int) -> torch.Tensor:
+    """Eq. 2 strip from split operands: (rowterm - cross) / R with the
+    cross term as hi(p) hi(l) + hi(p) lo(l) + lo(p) hi(l) (lo lo
+    dropped), each product an fp32 matmul -> (U, M)."""
+    (ah, al), (bh, bl) = a_planes, b_planes
+    cross = ah @ bh.T + ah @ bl.T + al @ bh.T
+    return (rowterm[:, None] - cross) / r
+
+
 def int8_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
                      zp: torch.Tensor) -> torch.Tensor:
     """Int8 wire form -> normalized log-probs, fully materialized.
@@ -77,4 +113,19 @@ def neighbor_mean_ref(w: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     probs (N,R,C) -> (N,R,C) fp32."""
     n, r, c = probs.shape
     t = w.float() @ probs.float().reshape(n, r * c)
+    return t.reshape(n, r, c)
+
+
+def neighbor_gather_ref(nbrs: torch.Tensor, w: torch.Tensor,
+                        probs: torch.Tensor) -> torch.Tensor:
+    """Eq. 5 targets over the neighbor lists: T[n] = sum_j w[n,j]
+    probs[nbrs[n,j]], summed in slot order j = 0..K-1. nbrs (N,K) int,
+    w (N,K) fp32 (0 on unrealized slots), probs (N,R,C) -> (N,R,C) fp32;
+    equal to ``neighbor_mean_ref`` on the dense W with those nonzeros."""
+    n, r, c = probs.shape
+    s = probs.float().reshape(n, r * c)
+    idx = nbrs.long()
+    t = torch.zeros_like(s)
+    for j in range(idx.shape[1]):
+        t += w[:, j:j + 1].float() * s[idx[:, j]]
     return t.reshape(n, r, c)

@@ -14,7 +14,8 @@ from repro_torch.kernels.ref import soft_ce_ref as plain
 
 # csrc/<SOURCE>.cu, its C entry point, and the entry point's device
 # pointers and ints (the stream comes last)
-SOURCE, ENTRY, ARGS = "soft_ce", "soft_ce", (3, 4)
+SOURCE, ENTRY = "soft_ce", "soft_ce"
+ENTRIES = {ENTRY: (3, 4)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_C = 1024   # one thread loops over a row's C classes (see soft_ce.cu)
 launches = 0
@@ -46,7 +47,7 @@ def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return out
     global launches
-    fn = build.entry(SOURCE, ENTRY, *ARGS)
+    fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
     code = fn(logits.data_ptr(), labels.data_ptr(), out.data_ptr(), n, r, c,
               int(logits.dtype == torch.bfloat16),
               torch.cuda.current_stream(logits.device).cuda_stream)

@@ -171,6 +171,34 @@ def test_final_server_state_matches(runs):
     assert int(ts.round) == int(js.round) == 4
 
 
+def test_final_targets_match_reference(runs):
+    """The last fire's targets, gathered over the port's neighbor lists,
+    equal the reference's dense-W neighbor mean of its own fire."""
+    jt, tt = runs["jeng"].fed.targets, runs["teng"].fed.targets
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=LOGIT_TOL)
+
+
+def _assert_slots_scatter_to_weights(fires):
+    for g in fires:
+        n, k = g.neighbors.shape
+        assert g.slot_weights is not None and g.slot_weights.shape == (n, k)
+        w = torch.zeros((n, n))
+        w.index_put_((torch.arange(n).repeat_interleave(k),
+                      g.neighbors.reshape(-1).long()),
+                     g.slot_weights.reshape(-1), accumulate=True)
+        np.testing.assert_array_equal(w.numpy(), g.weights.numpy())
+
+
+def test_fire_graphs_carry_slot_weights(runs):
+    """Every fire's graph carries the per-slot weights emit_targets
+    gathers with, and they scatter back to exactly its dense W."""
+    _assert_slots_scatter_to_weights(runs["tfires"])
+
+
+def test_server_paths_fire_graphs_carry_slot_weights(server_runs):
+    _assert_slots_scatter_to_weights(server_runs["tfires"])
+
+
 def test_server_paths_pick_the_same_edges_up_to_near_ties(server_runs):
     """Per fire, each client's neighbor set equals the reference's, or the
     differing picks are near-ties: the sorted similarities of the two
