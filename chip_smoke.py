@@ -13,10 +13,11 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    (N=4096, R=240, C=10), the federation's (32, 240, 3) and a ragged one
    (37, 13, 5): the Eq. 2 split pass and 3xTF32 GEMM, Eq. 1, the Eq. 5
    gather over neighbor lists (also held against the dense Eq. 5 kernel
-   on the same graph) and the dense Eq. 5 kernel; the Eq. 2 strip's error
-   against fp64, beside the plain version's; then times (CUDA events,
-   warm L2) of kernel, plain version and one library call as a
-   yardstick, beside each kernel's bound;
+   on the same graph) and the dense Eq. 5 kernel (also on a dense W, a
+   complete graph, timed beside its dense product's bound); the Eq. 2
+   strip's error against fp64, beside the plain version's; then times
+   (CUDA events, warm L2) of kernel, plain version and one library call
+   as a yardstick, beside each kernel's bound;
 4. server round: ``policy_round`` with sqmd(q=64, k=8) on a numpy-seeded
    N=4096 repository, held against the same round on the plain versions
    (neighbor sets and targets), with its launch counts;
@@ -25,11 +26,17 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    5 rounds, with launch counts read around it, every state tensor
    checked to be on the card, and the eval logits held against the same
    federation run on the CPU with the same numpy-made weights and draws;
-6. the int8 kernel (dequant_kl) against its plain version on int8-encoded
-   inputs: the server-round strip (2048 x 4096, R=240, C=10), the ANN
-   oracle strip (64 x 131072, R=8, C=10) and the ragged (37, 13, 5); times
-   of kernel, wrapper, plain version and a library product beside the
-   bound;
+6. the int8 kernel B4 (dequant_kl) on int8-encoded inputs, both routes:
+   the entry point with the stored lse, the wide route (dequant split +
+   B1's 3xTF32 GEMM) and the thin kernel, each against the plain version,
+   at the server-round strip (2048 x 4096, R=240, C=10) and the ANN
+   oracle strip (64 x 131072, R=8, C=10), both wide only (the thin
+   kernel takes at most THIN_ROWS = 16 rows), and a ragged (13 x 37,
+   R=13, C=5); the dequant split against its plain version; the wide
+   route's error against fp64 beside the plain version's; the square
+   matrix; a THIN_ROWS sweep (the wide route at 1-64 thin rows, the thin
+   kernel at 1-16); times of entry point, routes, plain version and a
+   library product beside each route's bound;
 7. a delta server round at N=4096: ``policy_round(..., uploaded=mask)``
    with 64 fresh rows, the cache held against a full rebuild, launch
    counts showing the two strips;
@@ -37,24 +44,37 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    k=10, default probes, the sizes of benchmarks/ann_scale.py): build
    time, one-row upload latency, resident device bytes and top-k overlap
    against an exact oracle of chunked int8 strips (fails below 0.9); a
-   real upload's forward and reverse strips through the int8 kernel
-   against its plain version; at N=4096 with probe-all, every list held
+   real upload's forward and reverse strips through B4 on the lse the
+   index stores, against the plain version and timed, and one upload
+   under torch.profiler (it fails if the upload computes the row
+   statistics in torch); at N=4096 with probe-all, a bulk upload and a
+   re-upload wave of 64 rows (both on the wide route), every list held
    against the dense oracle's top-L computed by the plain version;
 9. the IVF federation: phase 5's federation with ``delta_graph=True,
-   selection="ivf", uplink="int8"``, launch counts read around it, the
-   index's tensors checked to be on the card, eval logits held against
-   the same run on the CPU;
+   selection="ivf", uplink="int8"``, launch counts read around it (B1,
+   the gather and each of B4's three kernels must launch), the index's
+   tensors checked to be on the card, eval logits held against the same
+   run on the CPU;
 10. warm fit times of both federations, in turns (phase 5's fit is the
     process's first); phases 4, 7 and 10 also run one round or fit under
     torch.profiler for the device time by kernel and the device's busy
     share;
-11. a ``{"kernels": [...]}`` summary line (the int8 kernel's launches
-    from phase 9, the others' from phase 5, where the dense Eq. 5 entry
-    launches 0 times: both SQMD graphs carry their neighbor lists), then
+11. a ``{"kernels": [...]}`` summary line (B1-B3's launches from phase
+    5, where the dense Eq. 5 entry launches 0 times: both SQMD graphs
+    carry their neighbor lists; B4's three kernels' from phase 9), then
     the last line ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
 numbers also go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --b4-against OTHER_CHECKOUT
+
+times only B4 (the int8 Eq. 2 strip) of another checkout of this
+repository and of this one, one process each, in turns (other, this,
+this, other), at a real upload's strips, 16-64 oracle query rows and the
+server-round strip: device and back-to-back times of the other's 64 x 64
+FFMA tile alone where it has one, else of its entry point on the stored
+lse (``chiprun_out/b4_against.json``; no result line).
 """
 from __future__ import annotations
 
@@ -92,7 +112,11 @@ CARD = "?"                     # nvidia-smi name, power limit (set in main)
 # the magnitudes (divergences ~1-10, grades ~R log C, targets <= 1)
 TOL = {"pairwise_kl_pair": (1e-4, 1e-4), "soft_ce": (1e-3, 1e-5),
        "neighbor_mean": (1e-6, 1e-5), "neighbor_gather": (1e-6, 1e-5),
+       # a dense W: each target sums N products, in another order
+       "neighbor_mean_dense_w": (1e-5, 1e-5),
        "int8_pairwise_kl_pair": (1e-4, 1e-4),
+       # the int8 dequant split's hi + lo and row term, on the stored lse
+       "int8_pairwise_kl_split": (1e-5, 1e-5),
        # the split's hi + lo and row term (exp may differ in a last bit)
        "pairwise_kl_split": (1e-5, 1e-5)}
 # the 3xTF32 strip's error against fp64 may be at most this multiple of
@@ -128,6 +152,37 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn``: the card is held busy
+    (``torch.cuda._sleep``) while the host enqueues ``iters`` calls, so
+    the events around them time the device's back-to-back work, not the
+    host's launch rate, which bounds ``cuda_ms`` for calls whose kernels
+    take microseconds. Fails if the host did not finish enqueueing
+    before the card woke up (also when the calls' launches overflow the
+    launch queue, about a thousand, and the host waits for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    # sleep ~3x the host's time for the calls (clock64 cycles, ~2 GHz)
+    torch.cuda._sleep(int(max(host_s * 3, 2e-3) * 2e9))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    check(enqueue_s < max(host_s * 3, 2e-3) * 0.5,
+          "the card woke before the host had enqueued the timed calls")
     return start.elapsed_time(end) / iters
 
 
@@ -261,6 +316,42 @@ def fp64_errors(a) -> tuple:
     plain = ref.pairwise_kl_pair_ref(la, lb).double()
     return (float((got - truth).abs().max()),
             float((plain - truth).abs().max()))
+
+
+def dense_w_case(a) -> dict:
+    """The dense Eq. 5 entry on a dense W (a complete graph, FedMD's: each
+    row 1/(N-1) on every other client) and the server's S, against its
+    plain version, timed beside ``torch.matmul`` and the dense product's
+    bound (2 N N RC fp32 FFMA flops; W and S read once, T written once)."""
+    from repro_torch.kernels import neighbor_mean as nm
+    from repro_torch.kernels import ref
+    n, r, c = a["probs"].shape
+    k = r * c
+    w = torch.full((n, n), 1.0 / (n - 1), device=a["probs"].device)
+    w.fill_diagonal_(0.0)
+    got = nm.neighbor_mean(w, a["probs"])
+    want = ref.neighbor_mean_ref(w, a["probs"])
+    ea, _ = errors(got, want)
+    atol, rtol = TOL["neighbor_mean_dense_w"]
+    ok = torch.allclose(got, want, atol=atol, rtol=rtol)
+    print(f"  neighbor_mean on a dense W {(n, r, c)}: max_abs={ea:.3e} "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "neighbor_mean on a dense W disagrees with its plain version")
+    s_flat = a["probs"].reshape(n, k)
+    t_ops = 2.0 * n * n * k / PEAK_FP32_FLOPS * 1e3
+    t_bytes = 4.0 * (n * n + 2 * n * k) / PEAK_BYTES * 1e3
+    row = {"ms": cuda_ms(lambda: nm.neighbor_mean(w, a["probs"]), 10),
+           "plain_ms": cuda_ms(lambda: ref.neighbor_mean_ref(w, a["probs"]),
+                               10),
+           "library_ms": cuda_ms(lambda: torch.matmul(w, s_flat), 10),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "max_abs_err": ea}
+    print(f"  time [{CARD}] neighbor_mean on a dense W: kernel="
+          f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
+          f"library={row['library_ms']:.4f} ms bound={row['bound_ms']:.4f} "
+          f"ms ({row['bound_by']}) share={row['bound_ms'] / row['ms']:.3%}")
+    return row
 
 
 def kernel_phase(dev) -> dict:
@@ -429,6 +520,7 @@ def kernel_phase(dev) -> dict:
     # on a sparse graph)
     rows["neighbor_mean"]["sparse_library_ms"] = \
         rows["neighbor_gather"]["library_ms"]
+    rows["neighbor_mean"]["dense_w"] = dense_w_case(a)
     # the square matrix of a server round: one split of each side, then
     # two CHUNK_ROWS strips over the same planes
     from repro_torch.kernels import ops
@@ -496,6 +588,7 @@ def server_phase(dev) -> dict:
     counts = ops.launch_counts()
     check(counts == {"pairwise_kl_split": 2, "pairwise_kl_pair": 2,
                      "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
+                     "int8_pairwise_kl_split": 0, "int8_pairwise_kl_thin": 0,
                      "int8_pairwise_kl_pair": 0},
           f"server round launched {counts}")
     t_kern, t_plain = [], []
@@ -669,79 +762,254 @@ def int8_wire(shape, dev, seed):
     return p.arrays["q"], p.arrays["scale"], p.arrays["zp"]
 
 
-def int8_case(label: str, a, b, iters: int) -> dict:
-    """The int8 kernel on wire operands ``a`` (U rows) and ``b`` (M rows)
-    against its plain version; with ``iters``, times of the wrapper (row
-    statistics included), the kernel alone, the plain version and a
-    library product (``torch.matmul`` of the pre-dequantized fp32
-    operands, cross term only) beside the bound."""
+def int8_operands(shape, dev, seed):
+    """(q, fp32 scale, zp, lse): ``int8_wire`` with the row statistics the
+    IVF index stores beside the codes (torch.logsumexp of q·scale)."""
+    from repro_torch.kernels import dequant_kl as dk
+    q, s, z = int8_wire(shape, dev, seed)
+    s = s.float()
+    return q, s, z, dk.int8_row_stats(q, s)
+
+
+def int8_bytes(u: int, m: int, r: int, c: int) -> float:
+    """Bytes a B4 strip must move: each code once, scale and lse once,
+    the (U, M) fp32 result once."""
+    return 1.0 * (u + m) * r * c + 8.0 * (u + m) * r + 4.0 * u * m
+
+
+def int8_case(label: str, a, b, iters: int, routes=()) -> dict:
+    """B4 on operands ``a`` (U rows) and ``b`` (M rows) from
+    ``int8_operands``: the entry point with the stored lse (as the IVF
+    index calls it) and each route in ``routes`` on its own ("thin",
+    "wide"), against the plain version. With ``iters``, times of the
+    entry point, of each route, of the wide route's splits and GEMM
+    alone, of the plain version and of a library product
+    (``torch.matmul`` of the decoded fp32 operands, cross term only),
+    beside each route's bound: bytes or fp32 FFMA for the thin kernel,
+    3xTF32 for the wide route."""
     from repro_torch.kernels import dequant_kl as dk
     from repro_torch.kernels import ops, ref
-    got = ops.int8_pairwise_kl_pair(*a, *b)
-    want = ref.int8_pairwise_kl_pair_ref(*a, *b)
-    torch.cuda.synchronize()
-    (qa, sa, _), (qb, sb, _) = a, b
+    (qa, sa, za, la), (qb, sb, zb, lb) = a, b
     u, r, c = qa.shape
     m = qb.shape[0]
-    check(got.shape == (u, m) and got.dtype == torch.float32,
-          f"int8 {label}: shape/dtype {tuple(got.shape)} {got.dtype}")
-    ea, er = errors(got, want)
+    k = r * c
+    calls = {
+        "entry": lambda: ops.int8_pairwise_kl_pair(qa, sa, za, qb, sb, zb,
+                                                   lse_a=la, lse_b=lb),
+        "thin": lambda: dk.thin(qa, sa, qb, sb, la, lb),
+        "wide": lambda: dk.wide(qa, sa, qb, sb, la, lb)}
+    want = ref.int8_pairwise_kl_pair_ref(qa, sa, za, qb, sb, zb)
     atol, rtol = TOL["int8_pairwise_kl_pair"]
-    ok = torch.allclose(got, want, atol=atol, rtol=rtol)
-    print(f"  int8_pairwise_kl_pair {label:22s} ({u} x {m}, R={r}, C={c}) "
-          f"max_abs={ea:.3e} max_rel={er:.3e} atol={atol:g} rtol={rtol:g} "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok, f"int8_pairwise_kl_pair {label} disagrees with its plain "
-              f"version")
-    row = {"shape": [u, m, r, c], "max_abs_err": ea, "max_rel_err": er}
+    row = {"shape": [u, m, r, c],
+           "entry_route": "thin" if dk.thin_fits(min(u, m), r, c)
+           else "wide"}
+    for name in ("entry", *routes):
+        got = calls[name]()
+        torch.cuda.synchronize()
+        check(got.shape == (u, m) and got.dtype == torch.float32,
+              f"int8 {label} {name}: shape/dtype {tuple(got.shape)} "
+              f"{got.dtype}")
+        ea, er = errors(got, want)
+        ok = torch.allclose(got, want, atol=atol, rtol=rtol)
+        what = f"{name} ({row['entry_route']})" if name == "entry" else name
+        print(f"  int8_pairwise_kl {label:22s} {what:12s} ({u} x {m}, R={r}, "
+              f"C={c}) max_abs={ea:.3e} max_rel={er:.3e} atol={atol:g} "
+              f"rtol={rtol:g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"int8 {label} {name} disagrees with its plain version")
+        row[f"{name}_max_abs_err"] = ea
     if not iters:
         return row
-    sa32, sb32 = sa.float(), sb.float()
-    la, lb = dk.int8_row_stats(qa, sa32), dk.int8_row_stats(qb, sb32)
-    k = r * c
-    pa = torch.exp(qa.float().reshape(u, r, c) * sa32[..., None]
-                   - la[..., None]).reshape(u, k)
-    lb_t = (qb.float() * sb32[..., None] - lb[..., None]).reshape(m, k).T
-    t_call = cuda_ms(lambda: ops.int8_pairwise_kl_pair(*a, *b), iters)
-    t_kern = cuda_ms(lambda: dk.launch(qa, sa32, la, qb, sb32, lb), iters)
-    t_plain = cuda_ms(lambda: ref.int8_pairwise_kl_pair_ref(*a, *b), iters)
-    t_lib = cuda_ms(lambda: torch.matmul(pa, lb_t), iters)
+    nbytes = int8_bytes(u, m, r, c)
     flops = 2.0 * u * m * k
-    nbytes = 1.0 * (u + m) * k + 8.0 * (u + m) * r + 4.0 * u * m
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    bound = max(t_ops, t_bytes)
-    row.update({"ms": t_call, "kernel_ms": t_kern, "plain_ms": t_plain,
-                "library_ms": t_lib, "bound_ms": bound,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "flops": flops, "bytes": nbytes})
-    print(f"  time [{CARD}] int8 {label:22s} wrapper={t_call:.4f} ms "
-          f"kernel={t_kern:.4f} ms plain={t_plain:.4f} ms "
-          f"library={t_lib:.4f} ms bound={bound:.4f} ms "
-          f"({row['bound_by']}; {flops:.4g} flop, {nbytes:.4g} B) "
-          f"share={bound / t_kern:.3%}")
+    bounds = {"thin": (max(flops / PEAK_FP32_FLOPS * 1e3, t_bytes),
+                       "operations" if flops / PEAK_FP32_FLOPS * 1e3
+                       >= t_bytes else "bytes"),
+              "wide": (max(3 * flops / PEAK_TF32_FLOPS * 1e3, t_bytes),
+                       "operations" if 3 * flops / PEAK_TF32_FLOPS * 1e3
+                       >= t_bytes else "bytes")}
+    row["entry_ms"] = cuda_ms(calls["entry"], iters)
+    for name in routes:
+        row[f"{name}_ms"] = cuda_ms(calls[name], iters)
+        row[f"{name}_device_ms"] = device_ms(calls[name], iters)
+        row[f"{name}_bound_ms"], row[f"{name}_bound_by"] = bounds[name]
+    pa = torch.exp(ref.int8_decode_ref(qa, sa, la)).reshape(u, k)
+    lb_t = ref.int8_decode_ref(qb, sb, lb).reshape(m, k).T
+    row["plain_ms"] = cuda_ms(
+        lambda: ref.int8_pairwise_kl_pair_ref(qa, sa, za, qb, sb, zb), iters)
+    row["library_ms"] = cuda_ms(lambda: torch.matmul(pa, lb_t), iters)
+    row.update({"flops": flops, "bytes": nbytes})
+    times = " ".join(f"{n}={row[f'{n}_ms']:.4f} ms (device "
+                     f"{row[f'{n}_device_ms']:.4f} ms; bound "
+                     f"{row[f'{n}_bound_ms']:.4f}, {row[f'{n}_bound_by']}, "
+                     f"share of device "
+                     f"{row[f'{n}_bound_ms'] / row[f'{n}_device_ms']:.1%})"
+                     for n in routes)
+    print(f"  time [{CARD}] int8 {label:22s} entry={row['entry_ms']:.4f} ms "
+          f"{times} plain={row['plain_ms']:.4f} ms "
+          f"library={row['library_ms']:.4f} ms")
+    if "wide" in routes:
+        split_a = dk.split(qa, sa, True, la)[0]
+        split_b = dk.split(qb, sb, False, lb)[0]
+        row["split_ms"] = cuda_ms(lambda: (dk.split(qa, sa, True, la),
+                                           dk.split(qb, sb, False, lb)),
+                                  iters)
+        row["gemm_ms"] = cuda_ms(lambda: dk.gemm(split_a, split_b), iters)
+        # the GEMM alone: 3xTF32 operations against the planes read once
+        k_pad = split_a.planes.shape[2]
+        g_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        g_bytes = (8.0 * (u + m) * k_pad + 4.0 * u + 4.0 * u * m) \
+            / PEAK_BYTES * 1e3
+        row["gemm_bound_ms"] = max(g_ops, g_bytes)
+        row["gemm_bound_by"] = "operations" if g_ops >= g_bytes else "bytes"
+        print(f"  time [{CARD}] int8 {label:22s} wide route: two splits "
+              f"{row['split_ms']:.4f} ms + GEMM {row['gemm_ms']:.4f} ms "
+              f"(GEMM bound {row['gemm_bound_ms']:.4f} ms, "
+              f"{row['gemm_bound_by']})")
     return row
 
 
+def int8_split_case(a, b, iters: int) -> dict:
+    """The dequant split of both operands of a strip against its plain
+    version (hi + lo, the row term, TF32 bits), then its time beside its
+    bytes bound (codes, scale and lse in; planes and row term out)."""
+    from repro_torch.kernels import dequant_kl as dk
+    from repro_torch.kernels import ref
+    atol, rtol = TOL["int8_pairwise_kl_split"]
+    err, ok = 0.0, True
+    for (q, s, _, lse), a_side in ((a, True), (b, False)):
+        got, _ = dk.split(q, s, a_side, lse)
+        planes, rowterm = ref.int8_pairwise_kl_split_ref(
+            q, s, lse, a_side, got.planes.shape[2])
+        ok &= bool(((got.planes.view(torch.int32) & 0x1FFF) == 0).all())
+        pairs = [(got.planes.sum(0), planes.sum(0))]
+        if a_side:
+            pairs.append((got.rowterm, rowterm))
+        for g, w in pairs:
+            err = max(err, float((g - w).abs().max()))
+            ok &= torch.allclose(g, w, atol=atol, rtol=rtol)
+    (qa, sa, _, la), (qb, sb, _, lb) = a, b
+    u, r, c = qa.shape
+    m = qb.shape[0]
+    k_pad = got.planes.shape[2]
+    print(f"  int8_pairwise_kl_split ({u} + {m} rows, R={r}, C={c}) "
+          f"max_abs={err:.3e} (hi + lo, row term; TF32 planes) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "int8_pairwise_kl_split disagrees with its plain version")
+    t_kern = cuda_ms(lambda: (dk.split(qa, sa, True, la),
+                              dk.split(qb, sb, False, lb)), iters)
+    t_plain = cuda_ms(lambda: (
+        ref.int8_pairwise_kl_split_ref(qa, sa, la, True, k_pad),
+        ref.int8_pairwise_kl_split_ref(qb, sb, lb, False, k_pad)), iters)
+    nbytes = (1.0 * (u + m) * r * c + 8.0 * (u + m) * r
+              + 8.0 * (u + m) * k_pad + 4.0 * u)
+    flops = 2.0 * u * r * c             # exp and the row term, A side
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_FP32_FLOPS) * 1e3
+    by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_FP32_FLOPS \
+        else "operations"
+    print(f"  time [{CARD}] int8_pairwise_kl_split kernel={t_kern:.4f} ms "
+          f"plain={t_plain:.4f} ms bound={bound:.4f} ms ({by}; "
+          f"{nbytes:.4g} B) share={bound / t_kern:.1%}")
+    return {"ms": t_kern, "plain_ms": t_plain, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "max_abs_err": err}
+
+
+def int8_fp64_errors(a, b) -> tuple:
+    """Max abs error against fp64 of the decoded operands, of the wide
+    route and of the fp32 plain version on the same lse."""
+    from repro_torch.kernels import dequant_kl as dk
+    from repro_torch.kernels import ref
+    (qa, sa, _, la), (qb, sb, _, lb) = a, b
+    r = qa.shape[1]
+    da = ref.int8_decode_ref(qa, sa, la).reshape(qa.shape[0], -1).double()
+    db = ref.int8_decode_ref(qb, sb, lb).reshape(qb.shape[0], -1).double()
+    pa = da.exp()
+    truth = ((pa * da).sum(1)[:, None] - pa @ db.T) / r
+    got = dk.wide(qa, sa, qb, sb, la, lb).double()
+    plain = dk.plain(qa, sa, qb, sb, la, lb).double()
+    return (float((got - truth).abs().max()),
+            float((plain - truth).abs().max()))
+
+
+def thin_sweep(dev) -> list:
+    """The wide route at 1, 8, 16, 32 and 64 thin rows, and the thin
+    kernel up to its THIN_ROWS, against an ANN oracle chunk (131072 rows,
+    R=8, C=10), forward (thin x many) and reverse (many x thin), and at
+    the server's K (R=240, C=10) against 4096 rows; each route held
+    against the plain version, then its device and back-to-back times."""
+    from repro_torch.kernels import dequant_kl as dk
+    out = []
+    for (r, c), many_rows, sizes in (
+            ((ANN_R, ANN_C), ORACLE_CHUNK, (1, 8, 16, 32, 64)),
+            ((SERVER[1], SERVER[2]), SERVER[0], (1, 8, 16))):
+        many = int8_operands((many_rows, r, c), dev, 28)
+        for t in sizes:
+            few = int8_operands((t, r, c), dev, 29)
+            routes = ("thin", "wide") if t <= dk.THIN_ROWS else ("wide",)
+            for orient in ("forward", "reverse"):
+                a, b = (few, many) if orient == "forward" else (many, few)
+                row = int8_case(f"sweep {orient} t={t}", a, b, 0, routes)
+                (qa, sa, _, la), (qb, sb, _, lb) = a, b
+                fns = {"thin": lambda: dk.thin(qa, sa, qb, sb, la, lb),
+                       "wide": lambda: dk.wide(qa, sa, qb, sb, la, lb)}
+                row.update({"orient": orient, "thin_rows": t,
+                            "many_rows": many_rows, "r": r, "c": c})
+                for name in routes:
+                    row[f"{name}_ms"] = cuda_ms(fns[name], 20)
+                    row[f"{name}_device_ms"] = device_ms(fns[name], 20)
+                print(f"  [{CARD}] THIN_ROWS sweep R={r} C={c} {orient:7s} "
+                      f"{t:2d} x {many_rows}: " + ", ".join(
+                          f"{n} device {row[f'{n}_device_ms']:.4f} ms "
+                          f"(back-to-back {row[f'{n}_ms']:.4f})"
+                          for n in routes))
+                out.append(row)
+        del many
+    return out
+
+
 def int8_kernel_phase(dev) -> dict:
-    n, r, c = SERVER
-    rows = {
-        "server_strip": int8_case(
-            "server-round strip", int8_wire((2048, r, c), dev, 21),
-            int8_wire((n, r, c), dev, 22), iters=10),
-        "oracle_strip": int8_case(
-            "ANN oracle strip", int8_wire((N_QUERY, ANN_R, ANN_C), dev, 23),
-            int8_wire((ORACLE_CHUNK, ANN_R, ANN_C), dev, 24), iters=20),
-        "ragged": int8_case("ragged", int8_wire((19, 13, 5), dev, 25),
-                            int8_wire(RAGGED, dev, 26), iters=0),
-    }
-    w = int8_wire(RAGGED, dev, 27)
+    from repro_torch.kernels import dequant_kl as dk
     from repro_torch.kernels import ops, ref
-    got, want = ops.int8_pairwise_kl(*w), ref.int8_pairwise_kl_ref(*w)
-    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
-          "int8_pairwise_kl square (ragged) disagrees with its plain version")
-    print(f"  int8_pairwise_kl square {RAGGED}: max_abs="
-          f"{errors(got, want)[0]:.3e} ok")
+    n, r, c = SERVER
+    sa_, sb_ = (int8_operands((ops.CHUNK_ROWS, r, c), dev, 21),
+                int8_operands((n, r, c), dev, 22))
+    rows = {"server_strip": int8_case("server-round strip", sa_, sb_, 10,
+                                      routes=("wide",))}
+    rows["split"] = int8_split_case(sa_, sb_, 20)
+    e_kern, e_plain = int8_fp64_errors(sa_, sb_)
+    print(f"  int8 server-round strip against fp64 of the decoded operands: "
+          f"wide route max_abs={e_kern:.3e}, fp32 plain version "
+          f"max_abs={e_plain:.3e} (ratio {e_kern / e_plain:.3f}, limit "
+          f"{FP64_ERR_RATIO:g})")
+    check(e_kern <= FP64_ERR_RATIO * e_plain,
+          "the int8 wide route is less accurate than the fp32 plain version "
+          "allows")
+    rows["server_strip"].update({"fp64_max_abs_err": e_kern,
+                                 "plain_fp64_max_abs_err": e_plain})
+    oa = int8_operands((N_QUERY, ANN_R, ANN_C), dev, 23)
+    ob = int8_operands((ORACLE_CHUNK, ANN_R, ANN_C), dev, 24)
+    rows["oracle_strip"] = int8_case("ANN oracle strip", oa, ob, 20,
+                                     routes=("wide",))
+    rows["ragged"] = int8_case("ragged", int8_operands((13, 13, 5), dev, 25),
+                               int8_operands(RAGGED, dev, 26), 0,
+                               routes=("thin", "wide"))
+    rows["thin_sweep"] = thin_sweep(dev)
+    # the square matrix: one split of each side, one GEMM a CHUNK_ROWS strip
+    for shape, seed in ((RAGGED, 27), (SERVER, 22)):
+        w = int8_wire(shape, dev, seed)
+        got, want = ops.int8_pairwise_kl(*w), ref.int8_pairwise_kl_ref(*w)
+        ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
+        print(f"  int8_pairwise_kl square {shape}: max_abs="
+              f"{errors(got, want)[0]:.3e} {'ok' if ok else 'FAIL'}")
+        check(ok, f"int8_pairwise_kl square {shape} disagrees with its plain "
+                  f"version")
+    t_square = cuda_ms(lambda: ops.int8_pairwise_kl(*w), 5)
+    print(f"  time [{CARD}] int8_pairwise_kl square N={n} (two splits, two "
+          f"GEMMs) {t_square:.4f} ms, 3xTF32 bound "
+          f"{3 * 2.0 * n * n * r * c / PEAK_TF32_FLOPS * 1e3:.4f} ms")
+    rows["square_ms"] = t_square
+    print(f"  THIN_ROWS = {dk.THIN_ROWS}")
     return rows
 
 
@@ -774,6 +1042,7 @@ def delta_phase(dev) -> dict:
     counts = ops.launch_counts()
     check(counts == {"pairwise_kl_split": 4, "pairwise_kl_pair": 2,
                      "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
+                     "int8_pairwise_kl_split": 0, "int8_pairwise_kl_thin": 0,
                      "int8_pairwise_kl_pair": 0},
           f"delta round launched {counts}")
     rebuilt = ops.pairwise_kl(state.repo_logp)
@@ -833,6 +1102,7 @@ def index_state_on_card(idx) -> None:
 
 def ivf_scale(dev, n: int) -> dict:
     from repro_torch.core import NeighborIndex
+    from repro_torch.kernels import dequant_kl as dk
     from repro_torch.kernels import ops
     rng = np.random.default_rng(0)
     protos = rng.normal(scale=2.0, size=(N_PROTO, ANN_R, ANN_C))
@@ -890,21 +1160,47 @@ def ivf_scale(dev, n: int) -> dict:
     check(overlap >= OVERLAP_GATE,
           f"IVF overlap {overlap:.4f} at N={n} is below {OVERLAP_GATE}")
     if n == max(ANN_SIZES):
-        # a real upload's strips through the int8 kernel: forward (1 x m)
-        # against its candidates, reverse (m x 1) back
+        # a real upload's strips through B4, on the lse the index stores:
+        # forward (1 x m) against its candidates, reverse (m x 1) back
         one_t = torch.as_tensor(one, device=dev)
         cand, _ = idx._search(one_t)
         targets = cand[cand != one_t[0]]
 
         def wire_of(rows):
             s = idx._scale[rows]
-            return idx._codes[rows], s, torch.zeros_like(s)
+            return idx._codes[rows], s, torch.zeros_like(s), idx._lse[rows]
         row["m"] = int(targets.numel())
-        row["upload_fwd"] = int8_case("upload forward strip", wire_of(one_t),
-                                      wire_of(targets), iters=50)
-        row["upload_rev"] = int8_case("upload reverse strip",
-                                      wire_of(targets), wire_of(one_t),
-                                      iters=50)
+        for name, (ra, rb) in (("upload_fwd", (one_t, targets)),
+                               ("upload_rev", (targets, one_t))):
+            case = int8_case(f"upload {name[7:]} strip", wire_of(ra),
+                             wire_of(rb), 50, routes=("thin",))
+            # the index's own call (row gathers included), and the entry
+            # point asked to compute the lse itself (in the kernel)
+            case["index_strip_ms"] = cuda_ms(lambda: idx._strip(ra, rb), 50)
+            (qa, sa, za, _), (qb, sb, zb, _) = wire_of(ra), wire_of(rb)
+            case["entry_computed_lse_ms"] = cuda_ms(
+                lambda: ops.int8_pairwise_kl_pair(qa, sa, za, qb, sb, zb), 50)
+            print(f"  time [{CARD}] {name}: the index's strip call "
+                  f"{case['index_strip_ms']:.4f} ms; the entry point with "
+                  f"the stored lse {case['entry_ms']:.4f} ms, computing it "
+                  f"{case['entry_computed_lse_ms']:.4f} ms")
+            row[name] = case
+        # one upload under the profiler; the plain version's row
+        # statistics must not run on this path
+        calls = []
+        real = dk.int8_row_stats
+        dk.int8_row_stats = lambda *a: calls.append(a) or real(*a)
+        try:
+            ops.reset_launch_counts()
+            row["upload_profile"] = device_breakdown(
+                f"idx.update, one row, N={n:,}",
+                lambda: idx.update(one, lp_one))
+            row["upload_profile"]["launches"] = ops.launch_counts()
+        finally:
+            dk.int8_row_stats = real
+        print(f"  upload launches {row['upload_profile']['launches']}; "
+              f"torch int8_row_stats calls: {len(calls)}")
+        check(not calls, "an upload recomputed the row statistics in torch")
     return row
 
 
@@ -913,15 +1209,23 @@ def ivf_probe_all(dev, n: int = SERVER[0]) -> dict:
     computed by the plain version on the card off the same wire form,
     after a bulk upload and a re-upload wave."""
     from repro_torch.core import NeighborIndex
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(1)
     protos = rng.normal(scale=2.0, size=(N_PROTO, ANN_R, ANN_C))
     idx = NeighborIndex(n, ANN_R, ANN_C, k=ANN_K, n_probe=10 ** 6,
                         device=dev)
-    idx.update(np.arange(n), torch.from_numpy(gen_logp(rng, protos, n)))
+    bulk = torch.from_numpy(gen_logp(rng, protos, n))
     wave = rng.choice(n, size=DELTA_ROWS, replace=False)
-    degraded = idx.update(wave, torch.from_numpy(
-        gen_logp(rng, protos, DELTA_ROWS)))
+    fresh = torch.from_numpy(gen_logp(rng, protos, DELTA_ROWS))
+    # the launches of both uploads (4096 and 64 rows: the wide route),
+    # printed and kept apart from the federation's in the summary line
+    ops.reset_launch_counts()
+    idx.update(np.arange(n), bulk)
+    degraded = idx.update(wave, fresh)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"  IVF N={n} probe-all bulk upload and re-upload wave: launches "
+          f"{launches}")
     index_state_on_card(idx)
     codes, scale = idx._codes, idx._scale
     zp = torch.zeros_like(scale)
@@ -948,7 +1252,7 @@ def ivf_probe_all(dev, n: int = SERVER[0]) -> dict:
     check(tie_err <= 1e-5, "a probe-all pick differs beyond a near-tie")
     return {"n_clients": n, "div_max_abs_err": div_err,
             "rows_with_other_ids": n_rows, "tie_max_abs_err": tie_err,
-            "degraded_rebuilt": degraded}
+            "degraded_rebuilt": degraded, "launches": launches}
 
 
 def ivf_phase(dev) -> dict:
@@ -957,6 +1261,69 @@ def ivf_phase(dev) -> dict:
         out[str(n)] = ivf_scale(dev, n)
         torch.cuda.empty_cache()
     return out
+
+
+# B4's strips timed against another checkout (--b4-against), (U, M, R,
+# C): a real upload's two strips at N=10^6 (m = 38411, the candidates of
+# phase 8's upload), 16, 32 and 64 query rows against an ANN oracle chunk
+# (64 is the oracle strip), and the server-round strip
+B4_SHAPES = {"upload_fwd": (1, 38411, ANN_R, ANN_C),
+             "upload_rev": (38411, 1, ANN_R, ANN_C),
+             "oracle_16": (16, ORACLE_CHUNK, ANN_R, ANN_C),
+             "oracle_32": (32, ORACLE_CHUNK, ANN_R, ANN_C),
+             "oracle_64": (N_QUERY, ORACLE_CHUNK, ANN_R, ANN_C),
+             "server_strip": (2048, SERVER[0], SERVER[1], SERVER[2])}
+
+
+def b4_times(src: str) -> dict:
+    """B4's device and back-to-back times at B4_SHAPES, with the
+    ``repro_torch`` of ``src``, on operands that carry their lse: the
+    64 x 64 FFMA tile alone (``dequant_kl.launch``) where that checkout
+    has it, else the entry point handed the lse (thin or wide route)."""
+    sys.path.insert(0, src)
+    from repro_torch.kernels import dequant_kl as dk
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    tile = hasattr(dk, "launch")
+    out = {"src": src, "card": smi("name,power.limit"),
+           "what": "FFMA tile" if tile else "entry point, stored lse"}
+    for name, (u, m, r, c) in B4_SHAPES.items():
+        (qa, sa, za, la), (qb, sb, zb, lb) = (
+            int8_operands((u, r, c), dev, 41), int8_operands((m, r, c), dev,
+                                                             42))
+        fn = (lambda: dk.launch(qa, sa, la, qb, sb, lb)) if tile else (
+            lambda: ops.int8_pairwise_kl_pair(qa, sa, za, qb, sb, zb,
+                                              lse_a=la, lse_b=lb))
+        out[name] = {"device_ms": device_ms(fn, 20),
+                     "back_to_back_ms": cuda_ms(fn, 20)}
+    return out
+
+
+def b4_against(other: Path) -> int:
+    """B4 of another checkout (e.g. the parent commit, unpacked with git
+    archive) and of this one, one process each, in turns: other, this,
+    this, other. Prints the times; they also go to
+    ``chiprun_out/b4_against.json``."""
+    runs = []
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        res = subprocess.run([sys.executable, __file__, "--b4-times",
+                              str(tree / "src")], capture_output=True,
+                             text=True, timeout=600)
+        if res.returncode != 0:
+            print(res.stdout, res.stderr, file=sys.stderr)
+            return 1
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["label"] = label
+        runs.append(row)
+        for name in B4_SHAPES:
+            print(f"  [{row['card']}] {label:5s} {row['what']:23s} "
+                  f"{name:12s} device {row[name]['device_ms']:.4f} ms, "
+                  f"back-to-back {row[name]['back_to_back_ms']:.4f} ms")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "b4_against.json").write_text(json.dumps(runs, indent=2))
+    return 0
 
 
 SOURCES = {
@@ -970,15 +1337,24 @@ SOURCES = {
                         "src/repro/kernels/neighbor_mean.py:25"),
     "neighbor_mean": ("src/repro_torch/kernels/csrc/neighbor_mean.cu",
                       "src/repro/kernels/neighbor_mean.py:25"),
-    "int8_pairwise_kl_pair": ("src/repro_torch/kernels/csrc/dequant_kl.cu",
+    "int8_pairwise_kl_split": ("src/repro_torch/kernels/csrc/dequant_kl.cu",
+                               "src/repro/kernels/dequant_kl.py:39"),
+    "int8_pairwise_kl_thin": ("src/repro_torch/kernels/csrc/dequant_kl.cu",
+                              "src/repro/kernels/dequant_kl.py:39"),
+    # B4's wide route runs B1's 3xTF32 GEMM on the int8 splits
+    "int8_pairwise_kl_pair": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                               "src/repro/kernels/dequant_kl.py:39"),
 }
 # the kernels each federation must launch (the dense Eq. 5 entry is on
 # neither: both SQMD graphs carry their neighbor lists)
 DENSE_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "soft_ce",
               "neighbor_gather")
-IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair",
-            "int8_pairwise_kl_pair", "neighbor_gather")
+# B4's three kernels are on the IVF federation's path: its index's
+# uploads take the thin kernel, its rebuilds and selects the wide route
+# (the dequant split and the GEMM on int8 splits)
+B4 = ("int8_pairwise_kl_split", "int8_pairwise_kl_thin",
+      "int8_pairwise_kl_pair")
+IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "neighbor_gather", *B4)
 IVF_SERVER = dict(delta_graph=True, selection="ivf", uplink="int8")
 
 
@@ -986,6 +1362,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--b4-times":
+        print(json.dumps(b4_times(sys.argv[2])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--b4-against":
+        return b4_against(Path(sys.argv[2]).resolve())
+    if len(sys.argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -1022,13 +1406,8 @@ def main() -> int:
     inputs = federation_inputs()
     fedres = federation_phase(dev, {}, DENSE_PATH, inputs)
 
-    print("[6] int8 kernel against its plain version")
+    print("[6] the int8 kernel's two routes against their plain version")
     int8_rows = int8_kernel_phase(dev)
-    # the summary's ms is the kernel's own, like the bound; the wrapper's
-    # time (row statistics included) stays in the JSON as "wrapper_ms"
-    b4 = dict(int8_rows["server_strip"])
-    b4["wrapper_ms"], b4["ms"] = b4["ms"], b4["kernel_ms"]
-    rows["int8_pairwise_kl_pair"] = b4
 
     print(f"[7] delta server round at N={SERVER[0]}")
     delta = delta_phase(dev)
@@ -1042,12 +1421,32 @@ def main() -> int:
     print("[10] warm fits of both federations, in turns")
     fits = warm_fits(dev, inputs)
 
+    # B4's rows: the wide route's GEMM and splits at the server-round
+    # strip, the thin kernel at a real upload's forward strip (N=10^6),
+    # whose ms is its device time (device_ms): a back-to-back loop of
+    # those calls measures the host's launch rate, not the kernel
+    srv = int8_rows["server_strip"]
+    rows["int8_pairwise_kl_pair"] = {
+        "ms": srv["gemm_ms"], "plain_ms": srv["plain_ms"],
+        "library_ms": srv["library_ms"], "bound_ms": srv["gemm_bound_ms"],
+        "bound_by": srv["gemm_bound_by"],
+        "max_abs_err": srv["wide_max_abs_err"],
+        "wide_ms": srv["wide_ms"], "entry_ms": srv["entry_ms"]}
+    rows["int8_pairwise_kl_split"] = int8_rows["split"]
+    up = ivf[str(max(ANN_SIZES))]["upload_fwd"]
+    rows["int8_pairwise_kl_thin"] = {
+        "ms": up["thin_device_ms"], "plain_ms": up["plain_ms"],
+        "back_to_back_ms": up["thin_ms"],
+        "library_ms": up["library_ms"], "bound_ms": up["thin_bound_ms"],
+        "bound_by": up["thin_bound_by"], "max_abs_err": up["thin_max_abs_err"],
+        "entry_ms": up["entry_ms"]}
     # each kernel's launches come from the federation whose path it is
-    # on: B1-B3 the main path's (0 for the dense Eq. 5 entry, which is on
-    # no SQMD path), the int8 kernel the IVF federation's
+    # on, read around that federation's fit alone: B1-B3 the main path's
+    # (0 for the dense Eq. 5 entry, which is on no SQMD path), B4's the
+    # IVF federation's (phase 9 fails unless each launched there)
     launches = dict(fedres["launches"])
-    launches["int8_pairwise_kl_pair"] = \
-        ivf_fed["launches"]["int8_pairwise_kl_pair"]
+    for name in B4:
+        launches[name] = ivf_fed["launches"][name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],

@@ -290,11 +290,13 @@ class NeighborIndex:
     # -- strip search ------------------------------------------------------
     def _strip(self, rows_a: torch.Tensor,
                rows_b: torch.Tensor) -> torch.Tensor:
-        """Exact (|a|,|b|) KL strip straight off the stored wire form."""
+        """Exact (|a|,|b|) KL strip straight off the stored wire form and
+        the row statistics stored beside it."""
         sa, sb = self._scale[rows_a], self._scale[rows_b]
         return ops.int8_pairwise_kl_pair(
             self._codes[rows_a], sa, torch.zeros_like(sa),
-            self._codes[rows_b], sb, torch.zeros_like(sb))
+            self._codes[rows_b], sb, torch.zeros_like(sb),
+            lse_a=self._lse[rows_a], lse_b=self._lse[rows_b])
 
     def _search(self, rows: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,134 +1,476 @@
-// Fused int8 dequant -> Eq. 2 divergence strip on Hopper, straight from
-// the int8 wire form:
+// Eq. 2 divergence strips on Hopper, straight from the int8 wire form:
 //   D[a,b] = (sum_k p_a l_a - sum_k p_a l_b) / R,
 //   l[n,k] = q[n,k] * scale[n,r] - lse[n,r],  r = k / C,  p_a = exp(l_a)
 // over the flattened K = R*C axis. The per-row zero point cancels in the
-// softmax and is never read; lse[n,r] = logsumexp_c(q * scale) comes from
-// the wrapper (a plain O(N R) pass).
+// softmax and is never read. lse[n,r] = logsumexp_c(q * scale) is read
+// when the caller has it (the IVF index stores it) and computed in the
+// same pass otherwise.
 //
 // Replaces: src/repro/kernels/dequant_kl.py::_kernel (launched by
 // _call_pair), the Pallas TPU kernel behind int8_pairwise_kl and
 // int8_pairwise_kl_pair.
 //
-// Bound on this card: operations at the shapes the server runs. A
-// (U x M) strip costs 2 U M K flops against (U + M) K code bytes,
-// 8 (U + M) R bytes of scale/lse and 4 U M output bytes. The server-round
-// strip (2048 x 4096, R = 240, C = 10) is ~800 flop per byte moved; the
-// IVF oracle strip (64 x 131072, R = 8, C = 10) ~30, still above the
-// H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte).
+// Two routes behind one interface (kernels/dequant_kl.py picks by shape):
 //
-// Design: the fp32 FFMA tile of gemm_tile.cuh (no TF32: rowterm - cross
-// cancels and 1/d ranks neighbors) with loaders that dequantize. Each
-// thread reads the uint8 code at flat k and the scale/lse of (row, k / C)
-// and forms l in registers; for A it applies exp and accumulates the row
-// term in the same k loop. The fp32 (N, R, C)
-// decode never exists in device memory, which is what the TPU kernel was
-// written for. Ragged edges are masked in the load (a masked A element
-// gives p = 0 and adds nothing to the row term, a masked B element is 0,
-// so no 0 * -inf is ever formed), not padded with lse = 1e30 as on the
-// TPU. An upload's forward (1 x m) or reverse (m x 1) strip fills one row
-// or column of each 64 x 64 tile and wastes the rest: accepted in this
-// first version, the times are in PERF.md.
-#include <cstdint>
+// 1. Wide strips (both sides longer than THIN_ROWS, e.g. the server's
+//    2048 x 4096 at K = 2400): int8_pairwise_kl_split decodes each
+//    operand into the TF32 hi and lo planes that pairwise_kl_split writes
+//    for fp32 log-probs (p = exp(l) and the row term on the A side, l on
+//    the B side, K padded to 32 with zeros), and pairwise_kl.cu's 3xTF32
+//    wgmma GEMM contracts them. Bound: operations, 3 x 2 U M K flops at
+//    495 TFLOP/s (0.244 ms for that strip); the split itself is bytes-
+//    bound (1 byte of code in, 8 bytes of planes out an element). The
+//    planes are transient: the caller gathers each strip's codes anyway.
+//    One warp a row, 4-byte code loads and 16-byte plane stores; l is
+//    rounded as torch rounds q.float() * scale - lse (multiply, then
+//    subtract, no FMA), so the B side's planes equal the plain version's
+//    bit for bit when both read the same lse.
+//
+// 2. Thin strips (one side of at most THIN_ROWS = 16 rows: an upload's
+//    1 x m forward and m x 1 reverse strips): int8_pairwise_kl_thin. Bound: bytes at the upload shape (K = 80:
+//    each many-side row is 80 bytes of code and 64 of scale and lse,
+//    against at most 16 multiply-adds an element). Every block decodes
+//    the thin side (T rows) into shared memory, p and its row term if it
+//    is the A side, l if it is the B side. A warp then takes many-side
+//    rows, reads each code once with 4-byte loads, decodes in registers
+//    (with exp and the row term when the many side is A) and
+//    accumulates all T dot products in fp32 FFMA: lanes in ascending k,
+//    then a fixed halving butterfly that leaves a lane at most one of
+//    the T sums (no atomics, the same result every run). One row a warp
+//    made each warp one dependent chain of loads, decode and shuffles;
+//    a warp carries 4 rows at once (2 from 9 thin rows), so their loads
+//    are in flight together and each thin value read from shared memory
+//    feeds all of them.
+#include <cuda_runtime.h>
 
-#include "gemm_tile.cuh"
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
-using namespace tile;
+constexpr int WARPS = 8;        // warps a block; each takes whole rows
+constexpr int THIN_ROWS = 16;   // the thin kernel's largest thin side
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void __launch_bounds__(THREADS)
-dequant_kl_pair_kernel(const uint8_t* __restrict__ qa,
-                       const float* __restrict__ sa,
-                       const float* __restrict__ la,
-                       const uint8_t* __restrict__ qb,
-                       const float* __restrict__ sb,
-                       const float* __restrict__ lb,
-                       float* __restrict__ out, int U, int M, int R, int C) {
-  __shared__ float As[BK][LD];
-  __shared__ float Bs[BK][LD];
-  __shared__ float rowterm[BM];
+// x rounded to TF32, to nearest with ties away from zero; low bits zero
+// (as pairwise_kl.cu's tf32 and ref.tf32_round)
+__device__ __forceinline__ float tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
 
+// l = q * s - lse, each step rounded to nearest (no contraction to FMA)
+__device__ __forceinline__ float decode(uint32_t q, float s, float lse) {
+  return __fsub_rn(__fmul_rn(static_cast<float>(q), s), lse);
+}
+
+// c[0..V) = the codes at p; V == 4 reads 4 bytes at once (the caller
+// guarantees the alignment)
+template <int V>
+__device__ __forceinline__ void load_codes(const uint8_t* p,
+                                           uint32_t (&c)[V]) {
+  if constexpr (V == 4) {
+    const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
+    c[0] = x & 0xFF; c[1] = (x >> 8) & 0xFF;
+    c[2] = (x >> 16) & 0xFF; c[3] = x >> 24;
+  } else {
+    c[0] = p[0];
+  }
+}
+
+// lse[r] = logsumexp_c(q[r C + c] * s[r]) for one row, lanes over r, as
+// torch.logsumexp computes it (max, then log of the sum of exp of the
+// differences, plus the max). lse may be shared or global memory; the
+// warp synchronizes before any lane reads another lane's entry.
+__device__ __forceinline__ void row_lse(const uint8_t* q, const float* s,
+                                        float* lse, int R, int C,
+                                        int lane) {
+  for (int r = lane; r < R; r += 32) {
+    const float sr = s[r];
+    const uint8_t* qr = q + (size_t)r * C;
+    float mx = -INFINITY;
+    for (int c = 0; c < C; ++c)
+      mx = fmaxf(mx, __fmul_rn(static_cast<float>(qr[c]), sr));
+    float sum = 0.f;
+    for (int c = 0; c < C; ++c)
+      sum += expf(__fmul_rn(static_cast<float>(qr[c]), sr) - mx);
+    lse[r] = logf(sum) + mx;
+  }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------- split
+
+// Lanes walk a row in chunks of V consecutive k (V = 4 when K % 4 == 0
+// and the codes are 4-byte aligned, else 1); a chunk lies wholly below K
+// or wholly in the zero padding. lse is read (have_lse) or computed into
+// the same buffer first.
+template <int V>
+__global__ void __launch_bounds__(32 * WARPS)
+split_kernel(const uint8_t* __restrict__ q, const float* __restrict__ scale,
+             float* lse, float* __restrict__ hi, float* __restrict__ lo,
+             float* __restrict__ rowterm, int rows, int R, int C, int Kp,
+             int a_side, int have_lse) {
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // a whole warp leaves together
   const int K = R * C;
-  const int r0 = blockIdx.y * BM;
-  const int c0 = blockIdx.x * BN;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
-  float acc[4][4] = {};
-  float rt[4] = {};  // this thread's share of the row term of rows kc_row(e)
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    float p[4], b[4];
-    const int k = k0 + kc_k();
-    const int j = k / C;  // reference row of this thread's k
+  const uint8_t* src = q + (size_t)row * K;
+  const float* s = scale + (size_t)row * R;
+  float* ls = lse + (size_t)row * R;
+  if (!have_lse) row_lse(src, s, ls, R, C, lane);
+  float* h = hi + (size_t)row * Kp;
+  float* o = lo + (size_t)row * Kp;
+  float rt = 0.f;
+  for (int k = lane * V; k < Kp; k += 32 * V) {
+    float x[V];
+    if (k < K) {
+      uint32_t c[V];
+      load_codes<V>(src + k, c);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ra = r0 + kc_row(e);
-      p[e] = 0.f;
-      if (ra < U && k < K) {
-        const size_t s = (size_t)ra * R + j;
-        const float l = fmaf((float)qa[(size_t)ra * K + k], sa[s], -la[s]);
-        p[e] = expf(l);
-        rt[e] = fmaf(p[e], l, rt[e]);
+      for (int e = 0; e < V; ++e) {
+        const int r = (k + e) / C;
+        const float l = decode(c[e], s[r], ls[r]);
+        if (a_side) {
+          x[e] = expf(l);
+          rt = fmaf(x[e], l, rt);
+        } else {
+          x[e] = l;
+        }
       }
-      const int rb = c0 + kc_row(e);
-      b[e] = 0.f;
-      if (rb < M && k < K) {
-        const size_t s = (size_t)rb * R + j;
-        b[e] = fmaf((float)qb[(size_t)rb * K + k], sb[s], -lb[s]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = 0.f;
+    }
+    float xh[V], xl[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      xh[e] = tf32(x[e]);
+      xl[e] = tf32(x[e] - xh[e]);
+    }
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(h + k) = make_float4(xh[0], xh[1], xh[2],
+                                                      xh[3]);
+      *reinterpret_cast<float4*>(o + k) = make_float4(xl[0], xl[1], xl[2],
+                                                      xl[3]);
+    } else {
+      h[k] = xh[0];
+      o[k] = xl[0];
+    }
+  }
+  if (a_side) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) rt += __shfl_xor_sync(FULL, rt, off);
+    if (lane == 0) rowterm[row] = rt;
+  }
+}
+
+// ----------------------------------------------------------------- thin
+
+// Reduce acc[0..TB) over the warp's 32 lanes in a fixed order. Step j
+// halves the values a lane holds: the lane whose bit j is set keeps the
+// upper half and receives its partner's, the other the lower half; once
+// one value is left, the remaining bits add plainly. Afterwards acc[0] is
+// the warp's sum of index thin_index<TB>(lane).
+template <int TB, int J = 0>
+__device__ __forceinline__ void reduce_lanes(float (&acc)[TB], int lane) {
+  if constexpr (J < 5) {
+    constexpr int N = (TB >> J) > 0 ? (TB >> J) : 1;  // values held now
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (lane >> J) & 1;
+#pragma unroll
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? acc[i] : acc[i + H];
+        const float keep = up ? acc[i + H] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(FULL, send, 1 << J);
+      }
+    } else {
+      acc[0] += __shfl_xor_sync(FULL, acc[0], 1 << J);
+    }
+    reduce_lanes<TB, J + 1>(acc, lane);
+  }
+}
+
+// which of the TB sums reduce_lanes left in acc[0] of this lane
+template <int TB>
+__device__ __forceinline__ int thin_index(int lane) {
+  int t = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if ((TB >> (j + 1)) > 0 && ((lane >> j) & 1)) t += TB >> (j + 1);
+  return t;
+}
+
+// lanes that write the reduced sums: one per distinct (lane bits) group
+template <int TB>
+__device__ __forceinline__ bool thin_writer(int lane) {
+  constexpr int S = TB >= 16 ? 4 : (TB >= 8 ? 3 : (TB >= 4 ? 2 :
+                    (TB >= 2 ? 1 : 0)));
+  return (lane >> S) == 0;
+}
+
+// many-side rows a warp carries at once: RPI x TB accumulators a lane
+template <int TB>
+__host__ __device__ constexpr int rows_per_iter() {
+  return TB <= 8 ? 4 : 2;
+}
+
+// The thin side (T <= TB rows: the A side if thin_is_a, else the B side)
+// against M many-side rows. Shared memory: the thin side's x (p or l) as
+// (T, K) fp32, its row terms (A side), and its lse when not given.
+// out is (T, M) when the thin side is A, (M, T) when it is B.
+template <int TB, int V>
+__global__ void __launch_bounds__(32 * WARPS)
+thin_kernel(const uint8_t* __restrict__ qt, const float* __restrict__ st,
+            const float* __restrict__ lt, const uint8_t* __restrict__ qm,
+            const float* __restrict__ sm, float* lm, float* __restrict__ out,
+            int T, int M, int R, int C, int thin_is_a, int have_lt,
+            int have_lm) {
+  extern __shared__ __align__(16) float smem[];
+  const int K = R * C;
+  float* xs = smem;              // (T, K)
+  float* rts = xs + (size_t)T * K;  // (T,)
+  float* lts = rts + T;          // (T, R) when lse is computed here
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float fr = static_cast<float>(R);
+
+  // decode the thin side, one warp a row
+  for (int t = warp; t < T; t += WARPS) {
+    const uint8_t* src = qt + (size_t)t * K;
+    const float* s = st + (size_t)t * R;
+    if (!have_lt) row_lse(src, s, lts + (size_t)t * R, R, C, lane);
+    const float* ls = (have_lt ? lt : lts) + (size_t)t * R;
+    float rt = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float l = decode(src[k], s[k / C], ls[k / C]);
+      if (thin_is_a) {
+        const float p = expf(l);
+        rt = fmaf(p, l, rt);
+        xs[(size_t)t * K + k] = p;
+      } else {
+        xs[(size_t)t * K + k] = l;
       }
     }
-    store_kcontig(As, p);
-    store_kcontig(Bs, b);
-    __syncthreads();
-    mma(As, Bs, acc);
-    __syncthreads();
-  }
-
-  // the 16 lanes holding parts of one row differ only in their low 4 bits
+    if (thin_is_a) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      rt[e] += __shfl_xor_sync(0xffffffffu, rt[e], off);
-  if (kc_k() == 0) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) rowterm[kc_row(e)] = rt[e];
+      for (int off = 16; off > 0; off >>= 1)
+        rt += __shfl_xor_sync(FULL, rt, off);
+      if (lane == 0) rts[t] = rt;
+    }
   }
   __syncthreads();
 
-  const float inv_r = 1.f / static_cast<float>(R);
+  // the many side: each warp carries RPI rows at once (row, row + stride,
+  // ...), so their loads are in flight together and each thin value read
+  // from shared memory feeds RPI rows
+  constexpr int RPI = rows_per_iter<TB>();
+  const int stride = gridDim.x * WARPS;
+  for (int base = blockIdx.x * WARPS + warp; base < M;
+       base += stride * RPI) {
+    const uint8_t* src[RPI];
+    const float* s[RPI];
+    const float* ls[RPI];
+    bool live[RPI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row >= U) continue;
+    for (int j = 0; j < RPI; ++j) {
+      const int row = base + j * stride;
+      live[j] = row < M;  // a dead slot reads row base and writes nothing
+      const size_t rr = live[j] ? row : base;
+      src[j] = qm + rr * K;
+      s[j] = sm + rr * R;
+      ls[j] = lm + rr * R;
+      if (!have_lm && live[j]) row_lse(src[j], s[j], lm + rr * R, R, C, lane);
+    }
+    float acc[RPI][TB];
+    float rt[RPI];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx + 16 * j;
-      if (col < M)
-        out[(size_t)row * M + col] = (rowterm[ty + 16 * i] - acc[i][j]) * inv_r;
+    for (int j = 0; j < RPI; ++j) {
+      rt[j] = 0.f;
+#pragma unroll
+      for (int t = 0; t < TB; ++t) acc[j][t] = 0.f;
+    }
+    for (int k = lane * V; k < K; k += 32 * V) {
+      int r[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) r[e] = (k + e) / C;
+      float x[RPI][V];
+#pragma unroll
+      for (int j = 0; j < RPI; ++j) {
+        uint32_t c[V];
+        load_codes<V>(src[j] + k, c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float l = decode(c[e], s[j][r[e]], ls[j][r[e]]);
+          if (thin_is_a) {
+            x[j][e] = l;
+          } else {
+            x[j][e] = expf(l);
+            rt[j] = fmaf(x[j][e], l, rt[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TB; ++t) {
+        if (t < T) {
+          float y[V];
+          const float* p = xs + (size_t)t * K + k;
+          if constexpr (V == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(p);
+            y[0] = v.x; y[1] = v.y; y[2] = v.z; y[3] = v.w;
+          } else {
+            y[0] = p[0];
+          }
+#pragma unroll
+          for (int j = 0; j < RPI; ++j)
+#pragma unroll
+            for (int e = 0; e < V; ++e)
+              acc[j][t] = fmaf(x[j][e], y[e], acc[j][t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPI; ++j) {
+      reduce_lanes<TB>(acc[j], lane);
+      if (!thin_is_a) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          rt[j] += __shfl_xor_sync(FULL, rt[j], off);
+      }
+      if (!live[j] || !thin_writer<TB>(lane)) continue;
+      const int row = base + j * stride;
+      const int t = thin_index<TB>(lane);
+      if (t >= T) continue;
+      if (thin_is_a)   // D[t, row] = (rowterm_t - <p_t, l_row>) / R
+        out[(size_t)t * M + row] = (rts[t] - acc[j][0]) / fr;
+      else             // D[row, t] = (rowterm_row - <p_row, l_t>) / R
+        out[(size_t)row * T + t] = (rt[j] - acc[j][0]) / fr;
     }
   }
 }
 
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <int TB, int V>
+cudaError_t launch_thin(const void* qt, const void* st, const void* lt,
+                        const void* qm, const void* sm, void* lm, void* out,
+                        int T, int M, int R, int C, int thin_is_a,
+                        int have_lt, int have_lm, size_t smem,
+                        cudaStream_t s) {
+  auto kernel = thin_kernel<TB, V>;
+  // the shared-memory grant and the blocks an SM holds at this size, set
+  // and queried again only when the device or the size changes: each
+  // costs the host microseconds, as much as the kernel of an upload
+  static int dev_seen = -1, per_sm = 0;
+  static size_t smem_seen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev != dev_seen || smem != smem_seen) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      32 * WARPS, smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    dev_seen = dev;
+    smem_seen = smem;
+  }
+  // enough blocks to fill the card once, at most RPI rows a warp
+  const long rows_per_block = (long)WARPS * rows_per_iter<TB>();
+  const long want = ((long)M + rows_per_block - 1) / rows_per_block;
+  const int grid = (int)(want < (long)per_sm * num_sms()
+                             ? want : (long)per_sm * num_sms());
+  kernel<<<grid, 32 * WARPS, smem, s>>>(
+      static_cast<const uint8_t*>(qt), static_cast<const float*>(st),
+      static_cast<const float*>(lt), static_cast<const uint8_t*>(qm),
+      static_cast<const float*>(sm), static_cast<float*>(lm),
+      static_cast<float*>(out), T, M, R, C, thin_is_a, have_lt, have_lm);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t thin_by_size(const void* qt, const void* st, const void* lt,
+                         const void* qm, const void* sm, void* lm,
+                         void* out, int T, int M, int R, int C,
+                         int thin_is_a, int have_lt, int have_lm,
+                         size_t smem, cudaStream_t s) {
+#define THIN_CASE(TB)                                                     \
+  if (T <= TB)                                                            \
+    return launch_thin<TB, V>(qt, st, lt, qm, sm, lm, out, T, M, R, C,    \
+                              thin_is_a, have_lt, have_lm, smem, s);
+  THIN_CASE(1)
+  THIN_CASE(2)
+  THIN_CASE(4)
+  THIN_CASE(8)
+  THIN_CASE(16)
+#undef THIN_CASE
+  return cudaErrorInvalidValue;
+}
+
+bool aligned4(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0;
+}
+
 }  // namespace
 
-// qa (U, R, C) / qb (M, R, C) uint8 codes; sa, la (U, R) and sb, lb
-// (M, R) fp32 scale and lse; out (U, M) fp32. Every array row-major and
-// contiguous. Returns cudaGetLastError() after the launch.
-extern "C" int int8_pairwise_kl_pair(const void* qa, const void* sa,
-                                     const void* la, const void* qb,
-                                     const void* sb, const void* lb,
-                                     void* out, int U, int M, int R, int C,
-                                     void* stream) {
-  const dim3 grid((M + tile::BN - 1) / tile::BN,
-                  (U + tile::BM - 1) / tile::BM);
-  dequant_kl_pair_kernel<<<grid, tile::THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(qa), static_cast<const float*>(sa),
-      static_cast<const float*>(la), static_cast<const uint8_t*>(qb),
-      static_cast<const float*>(sb), static_cast<const float*>(lb),
-      static_cast<float*>(out), U, M, R, C);
+// q (rows, R, C) uint8 codes, scale (rows, R) fp32, lse (rows, R) fp32 ->
+// hi, lo (rows, Kp) fp32 planes of x = exp(l) (a_side != 0, with rowterm
+// (rows,) fp32) or x = l (a_side == 0, rowterm unused), Kp a multiple of
+// 4 at least R*C. lse is read when have_lse != 0, else written with the
+// row statistics first. Returns cudaGetLastError().
+extern "C" int int8_pairwise_kl_split(const void* q, const void* scale,
+                                      void* lse, void* hi, void* lo,
+                                      void* rowterm, int rows, int R, int C,
+                                      int Kp, int a_side, int have_lse,
+                                      void* stream) {
+  const int K = R * C;
+  if (Kp < K || Kp % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((rows + WARPS - 1) / WARPS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = (K % 4 == 0 && aligned4(q)) ? split_kernel<4>
+                                             : split_kernel<1>;
+  kernel<<<grid, 32 * WARPS, 0, s>>>(
+      static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
+      static_cast<float*>(lse), static_cast<float*>(hi),
+      static_cast<float*>(lo), static_cast<float*>(rowterm), rows, R, C, Kp,
+      a_side, have_lse);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The thin side qt (T, R, C) with st, lt (T, R) against the many side qm
+// (M, R, C) with sm, lm (M, R); all fp32 but the uint8 codes. thin_is_a
+// says which side of D the thin one is: out is (T, M) if it is A, else
+// (M, T). lt is read when have_lt != 0 (else computed in shared memory,
+// lt unused); lm is read when have_lm != 0, else written with the many
+// side's row statistics first. 1 <= T <= 16. Returns cudaGetLastError()
+// after the launch, or a refusal before it.
+extern "C" int int8_pairwise_kl_thin(const void* qt, const void* st,
+                                     const void* lt, const void* qm,
+                                     const void* sm, void* lm, void* out,
+                                     int T, int M, int R, int C,
+                                     int thin_is_a, int have_lt,
+                                     int have_lm, void* stream) {
+  if (T < 1 || T > THIN_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+  const int K = R * C;
+  const size_t smem = sizeof(float) *
+      ((size_t)T * K + T + (have_lt ? 0 : (size_t)T * R));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = K % 4 == 0 && aligned4(qm);
+  return static_cast<int>(
+      vec ? thin_by_size<4>(qt, st, lt, qm, sm, lm, out, T, M, R, C,
+                            thin_is_a, have_lt, have_lm, smem, s)
+          : thin_by_size<1>(qt, st, lt, qm, sm, lm, out, T, M, R, C,
+                            thin_is_a, have_lt, have_lm, smem, s));
 }

@@ -8,7 +8,7 @@ that puts the plain version on the card: the reference's
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -28,6 +28,8 @@ _COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
              "soft_ce": (_sc, "launches"),
              "neighbor_gather": (_ng, "launches"),
              "neighbor_mean": (_nm, "launches"),
+             "int8_pairwise_kl_split": (_dk, "split_launches"),
+             "int8_pairwise_kl_thin": (_dk, "thin_launches"),
              "int8_pairwise_kl_pair": (_dk, "launches")}
 
 
@@ -58,29 +60,28 @@ def pairwise_kl_pair(logp_a: torch.Tensor,
 def int8_pairwise_kl(q: torch.Tensor, scale: torch.Tensor,
                      zp: torch.Tensor) -> torch.Tensor:
     """Eq. 2 divergence matrix straight off the int8 wire form: q (N,R,C)
-    uint8, scale/zp (N,R) (``wire.Int8`` payload fields) -> (N,N) fp32.
-    N > CHUNK_ROWS is computed as CHUNK_ROWS x N row strips."""
-    q, scale, zp = q.contiguous(), scale.contiguous(), zp.contiguous()
-    n = q.shape[0]
-    if n > CHUNK_ROWS:
-        return torch.cat([
-            int8_pairwise_kl_pair(q[i:i + CHUNK_ROWS],
-                                  scale[i:i + CHUNK_ROWS],
-                                  zp[i:i + CHUNK_ROWS], q, scale, zp)
-            for i in range(0, n, CHUNK_ROWS)], dim=0)
-    return int8_pairwise_kl_pair(q, scale, zp, q, scale, zp)
+    uint8, scale/zp (N,R) (``wire.Int8`` payload fields) -> (N,N) fp32,
+    computed as CHUNK_ROWS x N row strips; on the card the repository is
+    split once for all strips."""
+    return _dk.int8_pairwise_kl(q.contiguous(), scale.contiguous(),
+                                zp.contiguous(), CHUNK_ROWS)
 
 
 def int8_pairwise_kl_pair(qa: torch.Tensor, sa: torch.Tensor,
                           zpa: torch.Tensor, qb: torch.Tensor,
-                          sb: torch.Tensor,
-                          zpb: torch.Tensor) -> torch.Tensor:
+                          sb: torch.Tensor, zpb: torch.Tensor,
+                          lse_a: Optional[torch.Tensor] = None,
+                          lse_b: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Rectangular Eq. 2 strip between two int8 wire forms: qa (U,R,C) /
     qb (M,R,C) uint8 with per-row scale/zp -> (U,M) fp32. The IVF index's
-    search primitive."""
+    search primitive; it passes the row statistics it stores as
+    ``lse_a``/``lse_b`` (fp32 (U,R) / (M,R)), else they are computed."""
     return _dk.int8_pairwise_kl_pair(
         qa.contiguous(), sa.contiguous(), zpa.contiguous(),
-        qb.contiguous(), sb.contiguous(), zpb.contiguous())
+        qb.contiguous(), sb.contiguous(), zpb.contiguous(),
+        lse_a=None if lse_a is None else lse_a.contiguous(),
+        lse_b=None if lse_b is None else lse_b.contiguous())
 
 
 def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ split launches; plain-version calls count nothing.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -80,10 +80,12 @@ def split(logp: torch.Tensor, a_side: bool) -> Split:
     return Split(planes, rowterm, r)
 
 
-def gemm(a: Split, b: Split,
-         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def gemm(a: Split, b: Split, out: Optional[torch.Tensor] = None,
+         count: Optional[Callable[[], None]] = None) -> torch.Tensor:
     """The 3xTF32 GEMM over split operands -> (U, M) fp32 strip, written
-    into ``out`` (a contiguous (U, M) fp32 view) when one is given."""
+    into ``out`` (a contiguous (U, M) fp32 view) when one is given. A
+    launch adds one to ``launches``, or calls ``count`` instead (the int8
+    route counts the GEMMs it runs as its own)."""
     global launches
     (_, u, k_pad), m = a.planes.shape, b.planes.shape[1]
     if a.rowterm is None or b.rowterm is not None \
@@ -104,7 +106,10 @@ def gemm(a: Split, b: Split,
               a.rowterm.data_ptr(), out.data_ptr(), u, m, k_pad, a.r,
               _stream(out))
     build.check(ENTRY, code)
-    launches += 1
+    if count is None:
+        launches += 1
+    else:
+        count()
     return out
 
 

@@ -76,6 +76,22 @@ def int8_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
     return torch.log_softmax(deq, dim=-1)
 
 
+def int8_decode_ref(q: torch.Tensor, scale: torch.Tensor,
+                    lse: torch.Tensor) -> torch.Tensor:
+    """Int8 wire form -> log-probs through the row statistics, as the
+    IVF index reconstructs a row: l = q·scale − lse, lse (..., R) =
+    logsumexp_c(q·scale). q (..., R, C) -> (..., R, C) fp32."""
+    return q.float() * scale.float()[..., None] - lse.float()[..., None]
+
+
+def int8_pairwise_kl_split_ref(q: torch.Tensor, scale: torch.Tensor,
+                               lse: torch.Tensor, a_side: bool, k_pad: int):
+    """The dequant split of the int8 Eq. 2 strip: the split pass
+    (``pairwise_kl_split_ref``) of the decoded l = q·scale − lse."""
+    return pairwise_kl_split_ref(int8_decode_ref(q, scale, lse), a_side,
+                                 k_pad)
+
+
 def int8_pairwise_kl_ref(q: torch.Tensor, scale: torch.Tensor,
                          zp: torch.Tensor) -> torch.Tensor:
     """Eq. 2 matrix of an int8-encoded repository: decode, then the dense

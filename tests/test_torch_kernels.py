@@ -11,10 +11,10 @@ Tolerances: fp32 inputs 1e-5 (pairwise_kl, neighbor_mean) and 1e-4
 different orders. bf16 inputs reuse the reference suite's bounds (5e-2,
 0.3, 2e-2): the Pallas kernels round intermediates (exp(l) in
 pairwise_kl) to bf16 where the port keeps fp32. The int8 strips
-(dequant_kl) agree to 1e-5: the plain version decodes with the zero point
-and ``torch.log_softmax``, the Pallas kernel with ``q·scale − lse`` and
-JAX's ``logsumexp``, which round differently in the last fp32 bits of
-log-probs of magnitude <= ~20.
+(dequant_kl) agree to 1e-5: both decode with ``q·scale − lse``, the plain
+version's lse from ``torch.logsumexp``, the Pallas kernel's from JAX's,
+which round differently in the last fp32 bits of log-probs of magnitude
+<= ~20.
 
 Eq. 5 runs on the card as a gather over each graph's neighbor lists
 (``neighbor_gather``); its plain version sums the slots in order, the
@@ -219,6 +219,119 @@ def test_int8_row_stats_match_reference(pallas, monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# B4's two card routes: their arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------
+
+def _stored_wire(n, r, c, seed):
+    """(q, fp32 scale, zero zp, lse) of messengers as the IVF index
+    stores them (``_encode_wire_rows``)."""
+    from repro_torch.core.similarity import _encode_wire_rows
+    q, s, lse = _encode_wire_rows(torch.from_numpy(_messengers(n, r, c,
+                                                               seed)))
+    return q, s, torch.zeros_like(s), lse
+
+
+@pytest.mark.parametrize("a_side", [True, False])
+def test_int8_split_ref_is_the_split_of_the_decoded_operand(a_side):
+    """The dequant split's plain version is B1's split of l = q·scale −
+    lse: the index's own reconstruction, and within fp32 rounding the
+    codec's decode (log_softmax of q·scale + zp)."""
+    r, c = 13, 5
+    q, s, z = _int8_wire(_messengers(9, r, c, 31))
+    lse = dk_mod.int8_row_stats(q, s)
+    k_pad = -(-r * c // pk_mod.BK) * pk_mod.BK
+    planes, rowterm = ref.int8_pairwise_kl_split_ref(q, s, lse, a_side,
+                                                     k_pad)
+    decoded = q.float() * s.float()[..., None] - lse[..., None]
+    want_planes, want_rowterm = ref.pairwise_kl_split_ref(decoded, a_side,
+                                                          k_pad)
+    assert torch.equal(planes, want_planes)
+    assert (rowterm is None) == (not a_side)
+    if a_side:
+        assert torch.equal(rowterm, want_rowterm)
+    np.testing.assert_allclose(decoded.numpy(),
+                               ref.int8_dequant_ref(q, s, z).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_int8_wide_route_matches_pallas_within_twice_fp32(pallas):
+    """The wide route emulated in torch (the dequant split's TF32 planes,
+    then hi hi + hi lo + lo hi) at the server's value ranges (R=240,
+    C=10): within 1e-4 of the Pallas kernel in interpret mode, and its
+    error against fp64 of the decoded operands at most twice the fp32
+    plain version's, for the cross term and the strip."""
+    r, c, u, m = 240, 10, 24, 40
+    a = _int8_wire(_messengers(u, r, c, 32))
+    b = _int8_wire(_messengers(m, r, c, 33))
+    (qa, sa, _), (qb, sb, _) = a, b
+    la, lb = dk_mod.int8_row_stats(qa, sa), dk_mod.int8_row_stats(qb, sb)
+    k_pad = -(-r * c // pk_mod.BK) * pk_mod.BK
+    a_planes, rowterm = ref.int8_pairwise_kl_split_ref(qa, sa, la, True,
+                                                       k_pad)
+    b_planes, _ = ref.int8_pairwise_kl_split_ref(qb, sb, lb, False, k_pad)
+    strip3 = ref.pairwise_kl_gemm_ref(a_planes, rowterm, b_planes, r)
+    want = np.asarray(pallas.dequant_kl.int8_pairwise_kl_pair(
+        *_to_jax(pallas.jnp, *a), *_to_jax(pallas.jnp, *b), bn=8, bm=8,
+        br=128, interpret=True))
+    np.testing.assert_allclose(strip3.numpy(), want, atol=1e-4, rtol=1e-4)
+    da = ref.int8_decode_ref(qa, sa, la).reshape(u, -1)
+    db = ref.int8_decode_ref(qb, sb, lb).reshape(m, -1)
+    pa64, da64, db64 = da.double().exp(), da.double(), db.double()
+    exact = pa64 @ db64.T
+    (ah, al), (bh, bl) = a_planes, b_planes
+    cross3 = (ah @ bh.T + ah @ bl.T + al @ bh.T).double()
+    cross32 = (da.exp() @ db.T).double()
+    err3 = float((cross3 - exact).abs().max())
+    err32 = float((cross32 - exact).abs().max())
+    assert err3 <= 2 * err32, (err3, err32)
+    truth = ((pa64 * da64).sum(1)[:, None] - exact) / r
+    strip32 = dk_mod.plain(qa, sa, qb, sb, la, lb)
+    e3 = float((strip3.double() - truth).abs().max())
+    e32 = float((strip32.double() - truth).abs().max())
+    assert e3 <= 2 * e32, (e3, e32)
+
+
+def test_stored_and_recomputed_lse_strips_are_bit_equal(monkeypatch):
+    """On the CPU a strip through the lse the index stores equals the
+    strip that recomputes it (``int8_row_stats``, here in 2-row chunks),
+    bit for bit: both are torch.logsumexp(q.float() * scale)."""
+    qa, sa, za, la = _stored_wire(3, 8, 10, 34)
+    qb, sb, zb, lb = _stored_wire(70, 8, 10, 35)
+    monkeypatch.setattr(dk_mod, "STATS_ELEMS", 2 * 8 * 10)
+    assert torch.equal(dk_mod.int8_row_stats(qb, sb), lb)
+    a, b = (qa, sa, za), (qb, sb, zb)
+    for (x, lx), (y, ly) in [((a, la), (b, lb)), ((b, lb), (a, la)),
+                             ((b, lb), (b, lb))]:
+        stored = ops.int8_pairwise_kl_pair(*x, *y, lse_a=lx, lse_b=ly)
+        fresh = ops.int8_pairwise_kl_pair(*x, *y)
+        assert torch.equal(stored, fresh)
+    assert torch.equal(ops.int8_pairwise_kl(qb, sb, zb),
+                       ops.int8_pairwise_kl_pair(qb, sb, zb, qb, sb, zb,
+                                                 lse_a=lb, lse_b=lb))
+
+
+def test_thin_route_takes_short_sides_whose_decode_fits():
+    t = dk_mod.THIN_ROWS
+    assert t == 16          # the thin kernel's own limit (dequant_kl.cu)
+    assert dk_mod.thin_fits(1, 8, 10) and dk_mod.thin_fits(t, 8, 10)
+    assert not dk_mod.thin_fits(0, 8, 10)
+    assert not dk_mod.thin_fits(t + 1, 8, 10)
+    # the server's K = 2400: THIN_ROWS rows' decode fits (169 KB); at
+    # K = 4000 one row's does, THIN_ROWS rows' (282 KB) would not
+    assert dk_mod.thin_fits(t, 240, 10)
+    assert dk_mod.thin_fits(1, 400, 10)
+    assert not dk_mod.thin_fits(t, 400, 10)
+
+
+def test_int8_lse_shape_is_checked():
+    q, s, z = _int8_wire(_messengers(4, 6, 3, 36))
+    with pytest.raises(ValueError, match="lse_a"):
+        ops.int8_pairwise_kl_pair(q, s, z, q, s, z, lse_a=torch.zeros(4, 5))
+    with pytest.raises(ValueError, match="lse_b"):
+        ops.int8_pairwise_kl_pair(q, s, z, q, s, z, lse_b=torch.zeros(3, 6))
+
+
+# --------------------------------------------------------------------------
 # Eq. 5 over the neighbor lists (neighbor_gather)
 # --------------------------------------------------------------------------
 
@@ -411,15 +524,20 @@ def test_cpu_calls_count_no_launches():
                         torch.ones((5, 2)), torch.exp(t))
     q, s, z = _int8_wire(_messengers(5, 6, 3, 7))
     ops.int8_pairwise_kl(q, s, z)
+    ops.int8_pairwise_kl_pair(q[:1], s[:1], z[:1], q, s, z)
     assert ops.launch_counts() == {"pairwise_kl_split": 0,
                                    "pairwise_kl_pair": 0, "soft_ce": 0,
                                    "neighbor_gather": 0, "neighbor_mean": 0,
+                                   "int8_pairwise_kl_split": 0,
+                                   "int8_pairwise_kl_thin": 0,
                                    "int8_pairwise_kl_pair": 0}
 
 
 @pytest.mark.parametrize("call", ["pairwise_kl", "soft_ce", "neighbor_mean",
                                   "int8_pairwise_kl", "neighbor_gather",
-                                  "pairwise_kl_split"])
+                                  "pairwise_kl_split",
+                                  "int8_pairwise_kl_split",
+                                  "int8_pairwise_kl_thin"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
     """Only a CPU tensor reaches the plain version: any other device goes
     to the kernel path, whose checks refuse what is not a CUDA tensor."""
@@ -438,7 +556,9 @@ def test_non_cpu_tensor_never_takes_the_plain_version(call):
                                 (torch.empty((4, 2), dtype=torch.int32,
                                              device="meta"),
                                  torch.empty((4, 2), device="meta"), z)),
-            "pairwise_kl_split": (pk_mod.split, (z, True))}
+            "pairwise_kl_split": (pk_mod.split, (z, True)),
+            "int8_pairwise_kl_split": (dk_mod.split, (q, s, True)),
+            "int8_pairwise_kl_thin": (dk_mod.thin, (q[:1], s[:1], q, s))}
     fn, a = args[call]
     with pytest.raises(ValueError, match="CUDA"):
         fn(*a)
@@ -464,12 +584,14 @@ def test_shape_checks_raise():
 
 
 @pytest.mark.parametrize("mod", [pk_mod, sc_mod, nm_mod, dk_mod, ng_mod],
-                         ids=lambda m: m.ENTRY)
+                         ids=["pairwise_kl_pair", "soft_ce", "neighbor_mean",
+                              "int8_pairwise_kl_pair", "neighbor_gather"])
 def test_wrapper_matches_its_c_entry_point(mod):
     """Each wrapper loads a source the build compiles and declares, for
     every C entry point it calls, the argument list that entry has:
     device pointers, ints, then the stream (ctypes would otherwise
-    truncate or misplace arguments)."""
+    truncate or misplace arguments). The int8 wrapper's entries are its
+    split and thin kernels; its GEMM is B1's (``pairwise_kl.gemm``)."""
     assert mod.SOURCE in build.SOURCES
     assert mod.ENTRY in mod.ENTRIES
     src = (build.CSRC / f"{mod.SOURCE}.cu").read_text()
@@ -481,6 +603,10 @@ def test_wrapper_matches_its_c_entry_point(mod):
         assert all("void*" in p for p in params[:n_ptr])
         assert all(p.startswith("int ") for p in params[n_ptr:-1])
         assert len(params) == n_ptr + n_int + 1
+    if mod is dk_mod:
+        assert set(mod.ENTRIES) == {"int8_pairwise_kl_split",
+                                    "int8_pairwise_kl_thin"}
+        assert "dequant_kl_pair_kernel" not in src   # the FFMA tile is gone
 
 
 def test_package_imports_neither_jax_nor_the_reference():
@@ -556,6 +682,8 @@ def test_cuda_kernels_match_plain(hopper, shape, dtype):
     assert ops.launch_counts() == {"pairwise_kl_split": 4,
                                    "pairwise_kl_pair": 2, "soft_ce": 1,
                                    "neighbor_gather": 1, "neighbor_mean": 1,
+                                   "int8_pairwise_kl_split": 0,
+                                   "int8_pairwise_kl_thin": 0,
                                    "int8_pairwise_kl_pair": 0}
 
 
@@ -640,11 +768,107 @@ def test_cuda_3xtf32_error_within_twice_fp32(hopper):
     assert e_kern <= 2 * e_plain, (e_kern, e_plain)
 
 
+def _int8_card(dev, n, r, c, seed):
+    """(q, fp32 scale, zp, lse) on the card: the payload's wire arrays and
+    the row statistics the plain version computes."""
+    q, s, z = (t.to(dev) for t in _int8_wire(_messengers(n, r, c, seed)))
+    s = s.float()
+    return q, s, z, dk_mod.int8_row_stats(q, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rc", [(37, 13), (240, 10)])
+@pytest.mark.parametrize("given", [True, False],
+                         ids=["stored_lse", "computed_lse"])
+@pytest.mark.parametrize("a_side", [True, False])
+def test_cuda_int8_split_matches_plain(hopper, rc, given, a_side):
+    """The dequant split against its plain version, on the scalar (K =
+    481) and 4-wide (K = 2400) paths: every plane value a TF32; with the
+    stored lse the B side's planes bit for bit, the A side's hi + lo
+    within 1e-6 relative (exp may differ in a last bit) and its row term
+    within 1e-5; a computed lse within 1e-6 of torch.logsumexp's."""
+    q, s, _, lse = _int8_card(hopper, 70, *rc, 37)
+    got, got_lse = dk_mod.split(q, s, a_side, lse if given else None)
+    planes, rowterm = ref.int8_pairwise_kl_split_ref(q, s, lse, a_side,
+                                                     got.planes.shape[2])
+    torch.cuda.synchronize()
+    assert bool(((got.planes.view(torch.int32) & 0x1FFF) == 0).all())
+    np.testing.assert_allclose(got_lse.cpu().numpy(), lse.cpu().numpy(),
+                               atol=1e-6, rtol=1e-6)
+    if given and not a_side:
+        assert torch.equal(got.planes, planes) and got.rowterm is None
+    else:
+        rtol = 1e-6 if given else 1e-5
+        np.testing.assert_allclose(got.planes.sum(0).cpu().numpy(),
+                                   planes.sum(0).cpu().numpy(),
+                                   atol=1e-5 * (not given), rtol=rtol)
+    if a_side:
+        np.testing.assert_allclose(got.rowterm.cpu().numpy(),
+                                   rowterm.cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("u,m,rc", [(1, 1000, (8, 10)), (1000, 1, (8, 10)),
+                                    ("thin", 1000, (8, 10)),
+                                    (1000, "thin", (8, 10)),
+                                    (13, 37, (13, 5)), (37, 13, (13, 5)),
+                                    (1, 300, (240, 10))])
+@pytest.mark.parametrize("given", [True, False],
+                         ids=["stored_lse", "computed_lse"])
+def test_cuda_int8_thin_matches_plain(hopper, u, m, rc, given):
+    """The thin kernel in both orientations (1 x m, m x 1, THIN_ROWS x m,
+    m x THIN_ROWS, THIN_ROWS being its largest thin side), ragged
+    (K = 65, scalar loads) and at the server's K = 2400, against the plain
+    version within (1e-4, 1e-4); one launch each."""
+    rows = {"thin": dk_mod.THIN_ROWS}
+    u, m = rows.get(u, u), rows.get(m, m)
+    qa, sa, za, la = _int8_card(hopper, u, *rc, 38)
+    qb, sb, zb, lb = _int8_card(hopper, m, *rc, 39)
+    ops.reset_launch_counts()
+    got = dk_mod.thin(qa, sa, qb, sb, *((la, lb) if given else ()))
+    want = ref.int8_pairwise_kl_pair_ref(qa, sa, za, qb, sb, zb)
+    torch.cuda.synchronize()
+    assert got.shape == (u, m) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)
+    assert ops.launch_counts()["int8_pairwise_kl_thin"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_int8_wide_strip_error_within_twice_fp32(hopper):
+    """A server-sized int8 strip (256 x 512, R=240, C=10) takes the wide
+    route (two dequant splits, one 3xTF32 GEMM) and its error against fp64
+    of the decoded operands is at most twice the fp32 plain version's."""
+    qa, sa, za, la = _int8_card(hopper, 256, 240, 10, 40)
+    qb, sb, zb, lb = _int8_card(hopper, 512, 240, 10, 41)
+    ops.reset_launch_counts()
+    got = ops.int8_pairwise_kl_pair(qa, sa, za, qb, sb, zb, lse_a=la,
+                                    lse_b=lb).double()
+    counts = ops.launch_counts()
+    assert (counts["int8_pairwise_kl_split"], counts["int8_pairwise_kl_pair"],
+            counts["int8_pairwise_kl_thin"], counts["pairwise_kl_pair"]) \
+        == (2, 1, 0, 0)
+    plain = dk_mod.plain(qa, sa, qb, sb, la, lb).double()
+    da = ref.int8_decode_ref(qa, sa, la).reshape(256, -1).double()
+    db = ref.int8_decode_ref(qb, sb, lb).reshape(512, -1).double()
+    pa = da.exp()
+    truth = ((pa * da).sum(1)[:, None] - pa @ db.T) / 240
+    e_kern = float((got - truth).abs().max())
+    e_plain = float((plain - truth).abs().max())
+    assert e_kern <= 2 * e_plain, (e_kern, e_plain)
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        ref.int8_pairwise_kl_pair_ref(qa, sa, za, qb, sb, zb).cpu().numpy(),
+        atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", GPU_SHAPES + [(1, 8, 10), (300, 8, 10)])
 def test_cuda_int8_kernel_matches_plain(hopper, shape):
     """B4 against its plain version on the card, bf16 wire scale, square
-    and both strip orientations (1 x m and m x 1 included)."""
+    and both strip orientations (1 x m and m x 1 included). The square
+    splits the repository once for each side and runs one GEMM a
+    CHUNK_ROWS strip; each one-row strip is one thin launch."""
     n, r, c = shape
     q, s, z = (t.to(hopper) for t in _int8_wire(_messengers(n, r, c, 15)))
     one = (q[:1].contiguous(), s[:1].contiguous(), z[:1].contiguous())
@@ -659,4 +883,32 @@ def test_cuda_int8_kernel_matches_plain(hopper, shape):
         assert got.is_cuda and got.dtype == torch.float32
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
-    assert ops.launch_counts()["int8_pairwise_kl_pair"] == 3
+    counts = ops.launch_counts()
+    assert (counts["int8_pairwise_kl_split"], counts["int8_pairwise_kl_pair"],
+            counts["int8_pairwise_kl_thin"]) == (2, 1, 2)
+    assert counts["pairwise_kl_split"] == counts["pairwise_kl_pair"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_index_upload_reads_the_stored_lse(hopper, monkeypatch):
+    """An IVF upload on the card runs its strips through the thin kernel
+    on the lse the index stores: the plain version's row statistics are
+    never computed, and no strip falls to the wide route."""
+    from repro_torch.core import NeighborIndex
+    rng = np.random.default_rng(42)
+    n = 4000
+    idx = NeighborIndex(n, 8, 10, k=5, device=hopper)
+    idx.ingest_only(np.arange(n), torch.from_numpy(_messengers(n, 8, 10, 43)))
+    idx.refresh()
+
+    def recompute(*args):
+        raise AssertionError("an upload recomputed the row statistics")
+
+    monkeypatch.setattr(dk_mod, "int8_row_stats", recompute)
+    ops.reset_launch_counts()
+    idx.update(rng.integers(0, n, size=1),
+               torch.from_numpy(_messengers(1, 8, 10, 44)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["int8_pairwise_kl_thin"] >= 2      # forward and reverse
+    assert counts["int8_pairwise_kl_split"] == 0

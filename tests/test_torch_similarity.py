@@ -261,6 +261,30 @@ def test_candidates_ghosts_and_partial_probes():
             assert (nbrs != np.arange(n)[:, None]).all()
 
 
+def test_index_strips_read_the_stored_row_stats(monkeypatch):
+    """Every strip the index runs passes the lse it stores: the plain
+    version's row-statistics helper is never called through uploads, a
+    re-upload wave, a deactivation and a selection repair."""
+    from repro_torch.kernels import dequant_kl
+
+    def recompute(*args):
+        raise AssertionError("a strip recomputed the row statistics")
+
+    rng = np.random.default_rng(11)
+    n, k = 60, 3
+    idx = _index(n, k)
+    idx.update(np.arange(n), torch.from_numpy(_rand_logp(rng, n)))
+    monkeypatch.setattr(dequant_kl, "int8_row_stats", recompute)
+    rows = rng.choice(n, 9, replace=False)
+    idx.update(rows, torch.from_numpy(_rand_logp(rng, rows.size)))
+    active = np.ones(n, bool)
+    active[rows[:3]] = False
+    idx.sync_active(torch.from_numpy(active))
+    cand = active & (rng.random(n) < 0.2)
+    nbrs, _ = idx.select(torch.from_numpy(cand))
+    assert nbrs.shape == (n, k)
+
+
 def test_update_dedups_unsorted_rows():
     """Duplicate, unsorted ids keep the payload aligned: the last write
     for an id wins."""
