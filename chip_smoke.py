@@ -12,12 +12,15 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    card, fp32 and bf16 inputs, at the server-round shape
    (N=4096, R=240, C=10), the federation's (32, 240, 3) and a ragged one
    (37, 13, 5): the Eq. 2 split pass and 3xTF32 GEMM, Eq. 1, the Eq. 5
-   gather over neighbor lists (also held against the dense Eq. 5 kernel
-   on the same graph) and the dense Eq. 5 kernel (also on a dense W, a
-   complete graph, timed beside its dense product's bound); the Eq. 2
-   strip's error against fp64, beside the plain version's; then times
-   (CUDA events, warm L2) of kernel, plain version and one library call
-   as a yardstick, beside each kernel's bound;
+   gather over neighbor lists (also held against the dense Eq. 5 route
+   on the same graph) and the dense Eq. 5 route; on a dense W (a
+   complete graph, FedMD's shape) the route, its two splits (W's on B1's
+   split pass, S's transposing split) and B1's GEMM in its plain-store
+   mode each against its plain version, with the route's error against
+   fp64 beside the plain version's; the Eq. 2 strip's error against
+   fp64, beside the plain version's; then times (CUDA events, warm L2)
+   of kernel, plain version and one library call as a yardstick, beside
+   each kernel's bound (the dense route's: the 3xTF32 bound of W S);
 4. server round: ``policy_round`` with sqmd(q=64, k=8) on a numpy-seeded
    N=4096 repository, held against the same round on the plain versions
    (neighbor sets and targets), with its launch counts;
@@ -52,17 +55,26 @@ Phases, in order; any failure exits nonzero and no result line is printed:
    against the dense oracle's top-L computed by the plain version;
 9. the IVF federation: phase 5's federation with ``delta_graph=True,
    selection="ivf", uplink="int8"``, launch counts read around it (B1,
-   the gather and each of B4's three kernels must launch), the index's
+   Eq. 1, the gather and each of B4's three kernels must launch), the index's
    tensors checked to be on the card, eval logits held against the same
    run on the CPU;
 10. warm fit times of both federations, in turns (phase 5's fit is the
-    process's first); phases 4, 7 and 10 also run one round or fit under
-    torch.profiler for the device time by kernel and the device's busy
-    share;
-11. a ``{"kernels": [...]}`` summary line (B1-B3's launches from phase
-    5, where the dense Eq. 5 entry launches 0 times: both SQMD graphs
-    carry their neighbor lists; B4's three kernels' from phase 9), then
-    the last line ``{"ok": true, "device": {...}}``.
+    process's first); phases 4, 7, 10 and 11 also run one round or fit
+    under torch.profiler for the device time by kernel and the device's
+    busy share;
+11. a FedMD server round: ``policy_round`` with fedmd() on phase 4's
+    repository, held against the same round on the plain versions
+    (targets within (1e-5, 1e-5)); it must launch Eq. 1 once and the
+    dense Eq. 5 route once (two splits, one GEMM), nothing else;
+12. phase 5's federation under each baseline, each held against its CPU
+    run: fedmd() (the dense Eq. 5 route every round), ddist(k=8) on a
+    numpy-made static graph passed as ``static_weights`` (the gather
+    every round, no dense route) and isgd() (no server kernel, no wire
+    byte);
+13. a ``{"kernels": [...]}`` summary line (B1, B2 and the gather's
+    launches from phase 5, B4's three kernels' from phase 9, the dense
+    Eq. 5 route's from phase 12's FedMD federation), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
 numbers also go to ``chiprun_out/chip_smoke.json``.
@@ -114,6 +126,8 @@ TOL = {"pairwise_kl_pair": (1e-4, 1e-4), "soft_ce": (1e-3, 1e-5),
        "neighbor_mean": (1e-6, 1e-5), "neighbor_gather": (1e-6, 1e-5),
        # a dense W: each target sums N products, in another order
        "neighbor_mean_dense_w": (1e-5, 1e-5),
+       # the plain-store GEMM against the same three products in fp32
+       "neighbor_mean_gemm": (1e-6, 1e-5),
        "int8_pairwise_kl_pair": (1e-4, 1e-4),
        # the int8 dequant split's hi + lo and row term, on the stored lse
        "int8_pairwise_kl_split": (1e-5, 1e-5),
@@ -319,39 +333,89 @@ def fp64_errors(a) -> tuple:
 
 
 def dense_w_case(a) -> dict:
-    """The dense Eq. 5 entry on a dense W (a complete graph, FedMD's: each
-    row 1/(N-1) on every other client) and the server's S, against its
-    plain version, timed beside ``torch.matmul`` and the dense product's
-    bound (2 N N RC fp32 FFMA flops; W and S read once, T written once)."""
+    """The dense Eq. 5 route on a dense W (a complete graph, each row
+    1/(N-1) on every other client, which TF32 does not hold exactly) and
+    the server's S: the route, W's split (B1's split pass, B side), S's
+    transposing split and the plain-store GEMM each against its plain
+    version; the route's error against fp64 beside the fp32 plain
+    version's; times of the route, the GEMM alone, the two splits, the
+    plain version and ``torch.matmul`` beside the 3xTF32 bound (the
+    splits' beside the bytes they must move)."""
     from repro_torch.kernels import neighbor_mean as nm
+    from repro_torch.kernels import pairwise_kl as pk
     from repro_torch.kernels import ref
-    n, r, c = a["probs"].shape
+    probs = a["probs"]
+    n, r, c = probs.shape
     k = r * c
-    w = torch.full((n, n), 1.0 / (n - 1), device=a["probs"].device)
+    w = torch.full((n, n), 1.0 / (n - 1), device=probs.device)
     w.fill_diagonal_(0.0)
-    got = nm.neighbor_mean(w, a["probs"])
-    want = ref.neighbor_mean_ref(w, a["probs"])
+    got = nm.neighbor_mean(w, probs)
+    want = ref.neighbor_mean_ref(w, probs)
     ea, _ = errors(got, want)
     atol, rtol = TOL["neighbor_mean_dense_w"]
     ok = torch.allclose(got, want, atol=atol, rtol=rtol)
     print(f"  neighbor_mean on a dense W {(n, r, c)}: max_abs={ea:.3e} "
           f"{'ok' if ok else 'FAIL'}")
     check(ok, "neighbor_mean on a dense W disagrees with its plain version")
-    s_flat = a["probs"].reshape(n, k)
-    t_ops = 2.0 * n * n * k / PEAK_FP32_FLOPS * 1e3
+    sw, st = nm.split_w(w), nm.split_t(probs)
+    k_pad = sw.planes.shape[2]
+    w_planes, _ = ref.pairwise_kl_split_ref(w.view(n, n, 1), False, k_pad)
+    s_planes = ref.neighbor_mean_split_ref(probs, k_pad)
+    ok = torch.equal(sw.planes, w_planes) and torch.equal(st.planes,
+                                                          s_planes)
+    print(f"  neighbor_mean_split (W's split, S's transposing split) "
+          f"{(n, r, c)}: planes bit-equal to the plain versions: {ok}")
+    check(ok, "the dense route's splits disagree with their plain versions")
+    out = torch.empty((n, k), dtype=torch.float32, device=probs.device)
+    gemm = pk.gemm(sw, st, out)
+    gemm_want = ref.tf32x3_ref(sw.planes, st.planes)
+    eg, _ = errors(gemm, gemm_want)
+    atol, rtol = TOL["neighbor_mean_gemm"]
+    ok = torch.allclose(gemm, gemm_want, atol=atol, rtol=rtol)
+    print(f"  pairwise_kl GEMM, plain-store mode, on those planes: "
+          f"max_abs={eg:.3e} {'ok' if ok else 'FAIL'}")
+    check(ok, "the plain-store GEMM disagrees with its plain version")
+    truth = w.double() @ probs.reshape(n, k).double()
+    e_kern = float((got.reshape(n, k).double() - truth).abs().max())
+    e_plain = float((want.reshape(n, k).double() - truth).abs().max())
+    print(f"  neighbor_mean {(n, r, c)} dense W against fp64: route "
+          f"max_abs={e_kern:.3e}, fp32 plain version max_abs={e_plain:.3e} "
+          f"(ratio {e_kern / e_plain:.3f}, limit {FP64_ERR_RATIO:g})")
+    check(e_kern <= FP64_ERR_RATIO * e_plain,
+          "the dense route is less accurate than the fp32 plain version "
+          "allows")
+    s_flat = probs.reshape(n, k)
+    t_ops = 3 * 2.0 * n * n * k / PEAK_TF32_FLOPS * 1e3
     t_bytes = 4.0 * (n * n + 2 * n * k) / PEAK_BYTES * 1e3
-    row = {"ms": cuda_ms(lambda: nm.neighbor_mean(w, a["probs"]), 10),
-           "plain_ms": cuda_ms(lambda: ref.neighbor_mean_ref(w, a["probs"]),
-                               10),
-           "library_ms": cuda_ms(lambda: torch.matmul(w, s_flat), 10),
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "max_abs_err": ea}
-    print(f"  time [{CARD}] neighbor_mean on a dense W: kernel="
-          f"{row['ms']:.4f} ms plain={row['plain_ms']:.4f} ms "
-          f"library={row['library_ms']:.4f} ms bound={row['bound_ms']:.4f} "
-          f"ms ({row['bound_by']}) share={row['bound_ms'] / row['ms']:.3%}")
-    return row
+    split_bytes = (4.0 * n * n + probs.element_size() * n * k
+                   + 8.0 * (n + k) * k_pad)
+    gemm_row = {
+        "ms": cuda_ms(lambda: pk.gemm(sw, st, out), 10),
+        "route_ms": cuda_ms(lambda: nm.neighbor_mean(w, probs), 10),
+        "plain_ms": cuda_ms(lambda: ref.neighbor_mean_ref(w, probs), 10),
+        "library_ms": cuda_ms(lambda: torch.matmul(w, s_flat), 10),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "max_abs_err": ea, "gemm_max_abs_err": eg,
+        "fp64_max_abs_err": e_kern, "plain_fp64_max_abs_err": e_plain}
+    split_row = {
+        "ms": cuda_ms(lambda: (nm.split_w(w), nm.split_t(probs)), 20),
+        "plain_ms": cuda_ms(lambda: (
+            ref.pairwise_kl_split_ref(w.view(n, n, 1), False, k_pad),
+            ref.neighbor_mean_split_ref(probs, k_pad)), 5),
+        "library_ms": None, "bound_ms": split_bytes / PEAK_BYTES * 1e3,
+        "bound_by": "bytes", "bytes": split_bytes, "max_abs_err": 0.0}
+    g = gemm_row
+    print(f"  time [{CARD}] neighbor_mean on a dense W {(n, r, c)}: route="
+          f"{g['route_ms']:.4f} ms (GEMM alone {g['ms']:.4f} ms, splits "
+          f"{split_row['ms']:.4f} ms) plain={g['plain_ms']:.4f} ms "
+          f"torch.matmul={g['library_ms']:.4f} ms; 3xTF32 bound "
+          f"{g['bound_ms']:.4f} ms ({g['bound_by']}): share of the GEMM "
+          f"{g['bound_ms'] / g['ms']:.3%}, of the route "
+          f"{g['bound_ms'] / g['route_ms']:.3%}; splits' bytes bound "
+          f"{split_row['bound_ms']:.4f} ms ({split_bytes:.4g} B), share "
+          f"{split_row['bound_ms'] / split_row['ms']:.3%}")
+    return {"gemm": gemm_row, "split": split_row}
 
 
 def kernel_phase(dev) -> dict:
@@ -516,11 +580,14 @@ def kernel_phase(dev) -> dict:
         print(f"  time [{CARD}] {name:17s} at {FEDERATION}: "
               f"kernel={rows[name]['federation_ms']:.4f} ms "
               f"plain={rows[name]['federation_plain_ms']:.4f} ms")
-    # what a sparse product of the same W costs (the dense entry's yardstick
-    # on a sparse graph)
-    rows["neighbor_mean"]["sparse_library_ms"] = \
-        rows["neighbor_gather"]["library_ms"]
-    rows["neighbor_mean"]["dense_w"] = dense_w_case(a)
+    # the dense entry's row is its route on a dense W, FedMD's shape; the
+    # same route on the sparse W stays beside it, with what a sparse
+    # product of that W costs
+    sparse = rows["neighbor_mean"]
+    sparse["sparse_library_ms"] = rows["neighbor_gather"]["library_ms"]
+    dense = dense_w_case(a)
+    rows["neighbor_mean"] = dict(dense["gemm"], sparse_w=sparse)
+    rows["neighbor_mean_split"] = dense["split"]
     # the square matrix of a server round: one split of each side, then
     # two CHUNK_ROWS strips over the same planes
     from repro_torch.kernels import ops
@@ -553,20 +620,28 @@ def same_neighbors(graph, want, what: str) -> torch.Tensor:
     return same
 
 
-def server_phase(dev) -> dict:
-    from repro_torch.core import (candidate_mask, init_server, policy_round,
-                                  select_neighbors_from_div, sqmd,
-                                  upload_messengers)
-    from repro_torch.core.policies import as_policy
-    from repro_torch.kernels import ops, ref
+def server_repository(dev) -> tuple:
+    """(state, labels): a numpy-seeded N=4096 repository, every client
+    active, on the card; phase 4's and the FedMD round's."""
+    from repro_torch.core import init_server, upload_messengers
     n, r, c = SERVER
-    q, k = 64, 8
     rng = np.random.default_rng(0)
     repo = torch.from_numpy(
         log_softmax_np(rng.normal(size=SERVER).astype(np.float32) * 2.0))
     labels = torch.from_numpy(rng.integers(0, c, r).astype(np.int32)).to(dev)
     state = upload_messengers(init_server(n, r, c, device=dev), repo.to(dev),
                               torch.ones(n, dtype=torch.bool))
+    return state, labels
+
+
+def server_phase(dev) -> dict:
+    from repro_torch.core import (candidate_mask, policy_round,
+                                  select_neighbors_from_div, sqmd)
+    from repro_torch.core.policies import as_policy
+    from repro_torch.kernels import ops, ref
+    n = SERVER[0]
+    q, k = 64, 8
+    state, labels = server_repository(dev)
     pol = as_policy(sqmd(q=q, k=k))
 
     def plain_round():
@@ -586,10 +661,8 @@ def server_phase(dev) -> dict:
     ops.reset_launch_counts()
     (_, targets, graph), _ = timed(lambda: policy_round(state, pol, labels))
     counts = ops.launch_counts()
-    check(counts == {"pairwise_kl_split": 2, "pairwise_kl_pair": 2,
-                     "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
-                     "int8_pairwise_kl_split": 0, "int8_pairwise_kl_thin": 0,
-                     "int8_pairwise_kl_pair": 0},
+    check(counts == launches_of(pairwise_kl_split=2, pairwise_kl_pair=2,
+                                soft_ce=1, neighbor_gather=1),
           f"server round launched {counts}")
     t_kern, t_plain = [], []
     for _ in range(3):                       # in turns: kernels, plain
@@ -615,7 +688,70 @@ def server_phase(dev) -> dict:
             "targets_max_abs_err": t_err, "profile": trace}
 
 
-def federation(dev, splits, ds, init_params, draws, logits_out, server):
+def launches_of(**counts) -> dict:
+    """Every kernel's launch count: the given ones, 0 for the rest."""
+    from repro_torch.kernels import ops
+    return {name: counts.get(name, 0) for name in ops.launch_counts()}
+
+
+def fedmd_round_phase(dev) -> dict:
+    """``policy_round`` with fedmd() on phase 4's repository: its
+    complete graph takes the dense Eq. 5 route (two splits and B1's GEMM
+    in its plain-store mode) and Eq. 1, nothing else; held against the
+    same round on the plain versions, timed in turns with it, and run
+    once under torch.profiler."""
+    from repro_torch.core import fedmd, fedmd_graph, policy_round
+    from repro_torch.core.policies import as_policy
+    from repro_torch.kernels import ops, ref
+    n = SERVER[0]
+    state, labels = server_repository(dev)
+    pol = as_policy(fedmd())
+
+    def plain_round():
+        lp = state.repo_logp
+        g = fedmd_graph(state.active)
+        return (ref.soft_ce_ref(lp, labels),
+                ref.neighbor_mean_ref(g.weights, torch.exp(lp)))
+
+    policy_round(state, pol, labels)                     # warm-up
+    plain_round()
+    ops.reset_launch_counts()
+    (new, targets, graph), _ = timed(lambda: policy_round(state, pol,
+                                                          labels))
+    counts = ops.launch_counts()
+    check(counts == launches_of(soft_ce=1, neighbor_mean=1,
+                                neighbor_mean_split=2),
+          f"FedMD round launched {counts}")
+    check(graph.slot_weights is None, "FedMD's graph carries slot weights")
+    t_kern, t_plain = [], []
+    for _ in range(3):                       # in turns: kernels, plain
+        t_kern.append(timed(lambda: policy_round(state, pol, labels))[1])
+        (pquality, ptargets), t = timed(plain_round)
+        t_plain.append(t)
+    print(f"  [{CARD}] FedMD policy_round N={n} on the kernels: "
+          f"{', '.join(f'{t:.2f}' for t in t_kern)} ms; launches {counts}")
+    print(f"  [{CARD}] FedMD policy_round N={n} on the plain versions: "
+          f"{', '.join(f'{t:.2f}' for t in t_plain)} ms")
+    t_err, _ = errors(targets, ptargets)
+    atol, rtol = TOL["neighbor_mean_dense_w"]
+    ok = torch.allclose(targets, ptargets, atol=atol, rtol=rtol)
+    print(f"  targets max abs err against the plain round: {t_err:.3e} "
+          f"(atol {atol:g}, rtol {rtol:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, "FedMD targets disagree with the plain round")
+    atol, rtol = TOL["soft_ce"]
+    check(torch.allclose(new.quality, pquality, atol=atol, rtol=rtol),
+          "FedMD grades disagree with the plain round")
+    check(bool(torch.isfinite(targets).all()), "non-finite targets")
+    trace = device_breakdown(f"FedMD policy_round N={n}",
+                             lambda: policy_round(state, pol, labels))
+    return {"kernel_ms": t_kern, "plain_ms": t_plain, "launches": counts,
+            "targets_max_abs_err": t_err, "profile": trace}
+
+
+def federation(dev, splits, ds, init_params, draws, logits_out, server,
+               protocol=None, static_weights=None):
+    """The 5-round sc_like federation on ``dev`` under ``protocol``
+    (sqmd(q=16, k=8) by default) and ``server`` config."""
     from repro_torch.core import FederationConfig, FederationEngine, sqmd
     from repro_torch.models import hetero_mlp_zoo
 
@@ -631,10 +767,12 @@ def federation(dev, splits, ds, init_params, draws, logits_out, server):
 
     return FederationEngine.build(
         ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
-        sqmd(q=16, k=8), config=FederationConfig(rounds=5, batch_size=32,
-                                                 eval_every=2, **server),
+        protocol or sqmd(q=16, k=8),
+        config=FederationConfig(rounds=5, batch_size=32, eval_every=2,
+                                **server),
         seed=1, callbacks=[record], device=dev, init_params=init_params,
-        batch_indices=lambda step, ci: draws(step, ci))
+        batch_indices=lambda step, ci: draws(step, ci),
+        static_weights=static_weights)
 
 
 def federation_inputs():
@@ -665,16 +803,20 @@ def federation_inputs():
     return ds, splits, init_params, draws
 
 
-def federation_phase(dev, server: dict, path: tuple, inputs) -> dict:
-    """The 5-round sc_like federation with ``server`` (FederationConfig's
-    delta/selection/codec settings) on the card, then on the CPU with the
-    same weights and draws. Fails unless every kernel in ``path``
-    launched during the card's fit."""
+def federation_phase(dev, server: dict, path: tuple, inputs,
+                     protocol=None, static_weights=None,
+                     exact=None) -> dict:
+    """The 5-round sc_like federation under ``protocol`` (sqmd(q=16, k=8)
+    by default) with ``server`` (FederationConfig's delta/selection/codec
+    settings) on the card, then on the CPU with the same weights and
+    draws. Fails unless every kernel in ``path`` launched during the
+    card's fit, every other kernel launched 0 times, and each kernel in
+    ``exact`` launched exactly that many times."""
     from repro_torch.kernels import ops
     ds, splits, init_params, draws = inputs
     card_logits, cpu_logits = [], []
     eng = federation(dev, splits, ds, init_params, draws, card_logits,
-                     server)
+                     server, protocol, static_weights)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -687,11 +829,16 @@ def federation_phase(dev, server: dict, path: tuple, inputs) -> dict:
     print(f"  [{CARD}] fit: {wall:.3f} s for 5 rounds, launches {counts}")
     check(all(counts[k] > 0 for k in path),
           f"a kernel of this path never launched: {counts}")
-    check(counts["neighbor_mean"] == 0,
-          "the dense Eq. 5 kernel ran where the graph carries its lists")
+    check(all(v == 0 for k, v in counts.items() if k not in path),
+          f"a kernel off this path launched: {counts}")
+    check(all(counts[k] == v for k, v in (exact or {}).items()),
+          f"launches other than {exact}: {counts}")
 
     fed = eng.fed
     tensors = [fed.ref_x, fed.ref_y, fed.targets, *fed.server]
+    if static_weights is not None:
+        tensors += [fed.static_weights, eng.policy.neighbors,
+                    eng.policy.slot_weights]
     for coh in fed.cohorts:
         tensors += [*coh.model.parameters(), coh.opt_state.step,
                     *coh.opt_state.momentum, *coh.data.values()]
@@ -707,7 +854,7 @@ def federation_phase(dev, server: dict, path: tuple, inputs) -> dict:
     print(f"  all {len(tensors)} state tensors on {fed.device}")
 
     cpu = federation("cpu", splits, ds, init_params, draws, cpu_logits,
-                     server)
+                     server, protocol, static_weights)
     cpu_hist = cpu.fit(splits)
     worst, flips = 0.0, 0
     for gpu_ev, cpu_ev in zip(card_logits, cpu_logits):
@@ -732,6 +879,40 @@ def federation_phase(dev, server: dict, path: tuple, inputs) -> dict:
     return {"launches": counts, "fit_s": wall, "mean_acc": hist.mean_acc,
             "cpu_mean_acc": cpu_hist.mean_acc, "logit_max_abs_diff": worst,
             "bytes_up": hist.bytes_up[-1], "bytes_down": hist.bytes_down[-1]}
+
+
+def static_graph(n: int, k: int) -> np.ndarray:
+    """A numpy-made D-Dist graph: k distinct other clients a row, weight
+    1/k each, (n, n) fp32."""
+    rng = np.random.default_rng(4)
+    w = np.zeros((n, n), np.float32)
+    for i in range(n):
+        w[i, rng.choice(np.delete(np.arange(n), i), size=k,
+                        replace=False)] = 1.0 / k
+    return w
+
+
+def baseline_phase(dev, inputs) -> dict:
+    """Phase 5's federation under each baseline: FedMD's complete graph
+    takes the dense Eq. 5 route every round, D-Dist's static graph (made
+    with numpy, passed through ``static_weights``) the gather, I-SGD no
+    server kernel and no wire byte."""
+    from repro_torch.core import ddist, fedmd, isgd
+    ds = inputs[0]
+    rounds = 5
+    out = {}
+    for name, protocol, static, path, exact in (
+            ("fedmd", fedmd(), None, FEDMD_PATH,
+             {"neighbor_mean": rounds, "neighbor_mean_split": 2 * rounds}),
+            ("ddist", ddist(k=8), static_graph(ds.n_clients, 8),
+             DDIST_PATH, {"neighbor_gather": rounds}),
+            ("isgd", isgd(), None, (), {})):
+        print(f"  -- {name}")
+        out[name] = federation_phase(dev, {}, path, inputs, protocol,
+                                     static, exact)
+    check(out["isgd"]["bytes_up"] == out["isgd"]["bytes_down"] == 0.0,
+          "I-SGD charged wire bytes")
+    return out
 
 
 def warm_fits(dev, inputs) -> dict:
@@ -1040,10 +1221,8 @@ def delta_phase(dev) -> dict:
     (new, targets, graph), _ = timed(
         lambda: policy_round(state, pol, labels, uploaded=mask))
     counts = ops.launch_counts()
-    check(counts == {"pairwise_kl_split": 4, "pairwise_kl_pair": 2,
-                     "soft_ce": 1, "neighbor_gather": 1, "neighbor_mean": 0,
-                     "int8_pairwise_kl_split": 0, "int8_pairwise_kl_thin": 0,
-                     "int8_pairwise_kl_pair": 0},
+    check(counts == launches_of(pairwise_kl_split=4, pairwise_kl_pair=2,
+                                soft_ce=1, neighbor_gather=1),
           f"delta round launched {counts}")
     rebuilt = ops.pairwise_kl(state.repo_logp)
     err = float((new.div_cache - rebuilt).abs().max())
@@ -1335,7 +1514,12 @@ SOURCES = {
                 "src/repro/kernels/soft_ce.py:25"),
     "neighbor_gather": ("src/repro_torch/kernels/csrc/neighbor_gather.cu",
                         "src/repro/kernels/neighbor_mean.py:25"),
-    "neighbor_mean": ("src/repro_torch/kernels/csrc/neighbor_mean.cu",
+    # the dense Eq. 5 route: its two splits (W's on B1's split kernel,
+    # S's transposing split of neighbor_mean.cu), then B1's GEMM in its
+    # plain-store mode
+    "neighbor_mean_split": ("src/repro_torch/kernels/csrc/neighbor_mean.cu",
+                            "src/repro/kernels/neighbor_mean.py:25"),
+    "neighbor_mean": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                       "src/repro/kernels/neighbor_mean.py:25"),
     "int8_pairwise_kl_split": ("src/repro_torch/kernels/csrc/dequant_kl.cu",
                                "src/repro/kernels/dequant_kl.py:39"),
@@ -1354,7 +1538,13 @@ DENSE_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "soft_ce",
 # (the dequant split and the GEMM on int8 splits)
 B4 = ("int8_pairwise_kl_split", "int8_pairwise_kl_thin",
       "int8_pairwise_kl_pair")
-IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "neighbor_gather", *B4)
+IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "soft_ce",
+            "neighbor_gather", *B4)
+# the baselines' paths: FedMD's complete graph takes the dense Eq. 5
+# route, D-Dist's static lists the gather; neither runs Eq. 2, and I-SGD
+# launches nothing
+FEDMD_PATH = ("soft_ce", "neighbor_mean", "neighbor_mean_split")
+DDIST_PATH = ("soft_ce", "neighbor_gather")
 IVF_SERVER = dict(delta_graph=True, selection="ivf", uplink="int8")
 
 
@@ -1421,6 +1611,12 @@ def main() -> int:
     print("[10] warm fits of both federations, in turns")
     fits = warm_fits(dev, inputs)
 
+    print(f"[11] FedMD server round at N={SERVER[0]}")
+    fedmd_round = fedmd_round_phase(dev)
+
+    print("[12] baseline federations: FedMD, D-Dist, I-SGD")
+    baselines = baseline_phase(dev, inputs)
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -1441,12 +1637,15 @@ def main() -> int:
         "bound_by": up["thin_bound_by"], "max_abs_err": up["thin_max_abs_err"],
         "entry_ms": up["entry_ms"]}
     # each kernel's launches come from the federation whose path it is
-    # on, read around that federation's fit alone: B1-B3 the main path's
-    # (0 for the dense Eq. 5 entry, which is on no SQMD path), B4's the
-    # IVF federation's (phase 9 fails unless each launched there)
+    # on, read around that federation's fit alone: B1, B2 and the gather
+    # the main path's, B4's the IVF federation's (phase 9 fails unless
+    # each launched there), the dense Eq. 5 route's the FedMD
+    # federation's (phase 12 fails unless it launched every round)
     launches = dict(fedres["launches"])
     for name in B4:
         launches[name] = ivf_fed["launches"][name]
+    for name in ("neighbor_mean", "neighbor_mean_split"):
+        launches[name] = baselines["fedmd"]["launches"][name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -1463,7 +1662,8 @@ def main() -> int:
         {"card": card, "kernels": rows, "int8_kernel": int8_rows,
          "server_round": server, "federation": fedres,
          "delta_round": delta, "ivf_index": ivf, "ivf_federation": ivf_fed,
-         "warm_fits_s": fits,
+         "warm_fits_s": fits, "fedmd_round": fedmd_round,
+         "baseline_federations": baselines,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

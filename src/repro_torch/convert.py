@@ -1,4 +1,5 @@
-"""Carry a cohort's weights across from the reference's layout.
+"""Carry a cohort's weights, and D-Dist's static graph, across from the
+reference's layout.
 
 ``cohort_params_from_numpy`` takes one cohort's stacked params as the
 reference keeps them, with every leaf already turned into a numpy array
@@ -13,6 +14,8 @@ from typing import List, Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch import Device, resolve_device
+
 
 def cohort_params_from_numpy(stacked: Mapping
                              ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -20,3 +23,13 @@ def cohort_params_from_numpy(stacked: Mapping
     return [(torch.from_numpy(np.array(layer["w"], np.float32)),
              torch.from_numpy(np.array(layer["b"], np.float32)))
             for layer in layers]
+
+
+def static_weights_from_numpy(weights: np.ndarray,
+                              device: Device = None) -> torch.Tensor:
+    """D-Dist's dense (N, N) static graph -> an fp32 tensor on ``device``
+    (None: the card), for ``FederationEngine.build(static_weights=)``."""
+    w = np.array(weights, np.float32)
+    if w.ndim != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"static weights must be (N, N), got {w.shape}")
+    return torch.from_numpy(w).to(resolve_device(device))

@@ -1,12 +1,15 @@
-"""SQMD core of the port: the synchronous federation on one device."""
+"""Core of the port: the synchronous federation on one device, under
+SQMD or one of its baselines (FedMD, D-Dist, I-SGD)."""
 from repro_torch.core.engine import (Federation, FederationConfig,
                                      FederationEngine, History, evaluate,
                                      precision_recall)
-from repro_torch.core.graph import (CollaborationGraph, graph_stats,
+from repro_torch.core.graph import (CollaborationGraph, ddist_graph,
+                                    fedmd_graph, graph_stats,
                                     select_neighbors,
                                     select_neighbors_from_div)
-from repro_torch.core.policies import SQMDPolicy, ServerPolicy, as_policy
-from repro_torch.core.protocols import Protocol, sqmd
+from repro_torch.core.policies import (DDistPolicy, FedMDPolicy, ISGDPolicy,
+                                       SQMDPolicy, ServerPolicy, as_policy)
+from repro_torch.core.protocols import Protocol, ddist, fedmd, isgd, sqmd
 from repro_torch.core.quality import candidate_mask, quality_scores
 from repro_torch.core.runtime import (ClientRuntime, EveryUpload, ServerBus,
                                       SyncClock)
@@ -24,8 +27,10 @@ from repro_torch.core.wire import (Codec, Dense32, Int8, Payload, as_codec,
 __all__ = [
     "Federation", "FederationConfig", "FederationEngine", "History",
     "evaluate", "precision_recall", "CollaborationGraph", "graph_stats",
-    "select_neighbors", "select_neighbors_from_div", "SQMDPolicy",
-    "ServerPolicy", "as_policy", "Protocol", "sqmd", "candidate_mask",
+    "select_neighbors", "select_neighbors_from_div", "fedmd_graph",
+    "ddist_graph", "SQMDPolicy", "FedMDPolicy", "DDistPolicy", "ISGDPolicy",
+    "ServerPolicy", "as_policy", "Protocol", "sqmd", "fedmd", "ddist",
+    "isgd", "candidate_mask",
     "quality_scores", "ClientRuntime", "EveryUpload", "ServerBus",
     "SyncClock", "AlwaysOn", "Schedule", "StagedJoin", "ServerState",
     "init_server", "policy_round", "server_round", "upload_messengers",

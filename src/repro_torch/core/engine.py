@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from repro_torch import Device, resolve_device
-from repro_torch.convert import cohort_params_from_numpy
+from repro_torch.convert import (cohort_params_from_numpy,
+                                 static_weights_from_numpy)
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import wire
 from repro_torch.core.client import (Cohort, cohort_accuracy,
@@ -85,6 +86,7 @@ class Federation:
     history: History = dataclasses.field(default_factory=History)
     uplink: str = "dense32"     # wire codec names, client->server and
     downlink: str = "dense32"   # server->client
+    static_weights: Optional[torch.Tensor] = None   # D-Dist's graph
 
     @property
     def device(self) -> torch.device:
@@ -133,11 +135,15 @@ def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
                      assignment: Optional[Sequence[str]],
                      policy: Union[str, Protocol, ServerPolicy],
                      *, device: Device, seed: int,
-                     init_params: Optional[Mapping[str, Mapping]]
+                     init_params: Optional[Mapping[str, Mapping]],
+                     static_weights=None
                      ) -> Tuple[Federation, ServerPolicy]:
     """families: {name: MLPConfig}; assignment[n] = family of client n
     (None: round-robin over the families). Every client trains with SGD,
-    lr 0.05, momentum 0.9 (the reference's default)."""
+    lr 0.05, momentum 0.9 (the reference's default). ``static_weights``
+    (numpy or tensor, dense (N,N)) is D-Dist's graph; a policy with
+    one-time state that got none draws it in ``setup`` from the
+    federation's generator, after the cohorts' draws."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -168,13 +174,21 @@ def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
                                      device=dev)}
         cohorts.append(Cohort(fam, model, opt.init(list(model.parameters())),
                               np.asarray(ids), data))
+    if isinstance(static_weights, np.ndarray):
+        static_weights = static_weights_from_numpy(static_weights, dev)
+    elif static_weights is not None:
+        static_weights = static_weights.to(dev, torch.float32)
+    pol = as_policy(policy, static_weights=static_weights)
+    if type(pol).setup is not ServerPolicy.setup:
+        pol.setup(gen, n)
     fed = Federation(
         cohorts=cohorts, server=init_server(n, len(ds.ref_y), ds.n_classes,
                                             dev),
         ref_x=torch.as_tensor(ds.ref_x, dtype=torch.float32, device=dev),
         ref_y=torch.as_tensor(ds.ref_y, dtype=torch.int32, device=dev),
-        optimizer=opt, n_clients=n, generator=gen)
-    return fed, as_policy(policy)
+        optimizer=opt, n_clients=n, generator=gen,
+        static_weights=getattr(pol, "static_weights", None))
+    return fed, pol
 
 
 class FederationEngine:
@@ -226,26 +240,33 @@ class FederationEngine:
               callbacks: Sequence[RoundCallback] = (),
               device: Device = None,
               init_params: Optional[Mapping[str, Mapping]] = None,
-              batch_indices: Optional[BatchIndices] = None
-              ) -> "FederationEngine":
+              batch_indices: Optional[BatchIndices] = None,
+              static_weights=None) -> "FederationEngine":
         """``schedule=None`` is always-on; ``device=None`` is the card,
-        and raises without one."""
+        and raises without one. ``static_weights`` is D-Dist's dense
+        (N,N) graph (numpy or tensor); without it D-Dist draws one."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
-            seed=seed, init_params=init_params)
+            seed=seed, init_params=init_params,
+            static_weights=static_weights)
         return cls(fed, pol, schedule or AlwaysOn(), config=config,
                    callbacks=callbacks, batch_indices=batch_indices)
 
     def run_round(self, rnd: int) -> None:
         """One round, in place: a local step for the available clients
-        (distilling toward the targets from round 1 on), then their upload,
-        which fires the server."""
+        (distilling toward the targets from round 1 on, if the policy uses
+        the reference set), then, every ``interval`` rounds, their upload,
+        which fires the server; other rounds only mark them active."""
         fed = self.fed
         t = float(rnd)
         self.clock.advance(t)
         avail = np.asarray(self.schedule.available(rnd, fed.n_clients), bool)
-        self.clients.local_round(avail, use_ref=rnd > 0)
-        self.bus.deliver(t, self.clients.collect_messengers(avail), avail)
+        uses_ref = self.policy.uses_reference
+        self.clients.local_round(avail, use_ref=uses_ref and rnd > 0)
+        if uses_ref and rnd % self.policy.interval == 0:
+            self.bus.deliver(t, self.clients.collect_messengers(avail), avail)
+        else:
+            self.bus.observe(t, avail)
 
     def evaluate(self, splits: Sequence[ClientSplit],
                  which: str = "test") -> np.ndarray:

@@ -1,10 +1,13 @@
-"""The dynamic directed collaboration graph (paper Def. 5).
+"""The dynamic directed collaboration graph (paper Def. 5), and the
+baselines' graphs.
 
 Each round the server re-derives every client's neighbor set K^n — the K
 most-similar members of the quality pool Q, never the client itself —
 with the weight of each neighbor slot (1/K on chosen edges), which the
 ``neighbor_gather`` kernel consumes, and the row-stochastic selection
-matrix W those slots scatter to.
+matrix W those slots scatter to. FedMD's complete graph carries only its
+dense W (the ``neighbor_mean`` entry); D-Dist's static graph carries its
+lists like SQMD's.
 """
 from __future__ import annotations
 
@@ -104,6 +107,57 @@ def select_neighbors_from_div(divergence: torch.Tensor,
     matrix; the graph carries both matrices."""
     g = select_neighbors(similarity_matrix(divergence), candidates, k)
     return g._replace(divergence=divergence)
+
+
+def fedmd_graph(active: torch.Tensor) -> CollaborationGraph:
+    """FedMD: everyone averages everyone (Q = K = N), a complete graph
+    over the active clients with uniform weights, self-edges included.
+    No slot weights: its targets take the dense entry."""
+    n = active.shape[0]
+    a = active.float()
+    w = (a / torch.clamp(a.sum(), min=1.0))[None, :].expand(n, n)
+    w = w.contiguous()
+    nbrs = torch.arange(n, dtype=torch.int32,
+                        device=active.device)[None, :].expand(n, n)
+    return CollaborationGraph(neighbors=nbrs, weights=w, similarity=w,
+                              candidates=active)
+
+
+def ddist_graph(generator: torch.Generator, n: int, k: int,
+                active: Optional[torch.Tensor] = None
+                ) -> CollaborationGraph:
+    """D-Dist: a static random K-neighbor graph, drawn once at setup; no
+    server-side filtering.
+
+    Each row samples uniformly without replacement over the active,
+    non-self clients: Gumbel scores (from ``generator``, on its device)
+    plus log p, the first k of a stable descending sort; slots scored
+    -inf are unrealizable and carry weight 0. k is clamped to n - 1, rows
+    renormalize over their realized edges, and an all-inactive federation
+    yields an all-zero (NaN-free) W."""
+    dev = generator.device
+    if active is None:
+        active = torch.ones(n, dtype=torch.bool, device=dev)
+    active = active.to(dev)
+    k = min(k, n - 1)
+    u = torch.rand((n, n), generator=generator, device=dev)
+    gumbel = -torch.log(-torch.log(torch.clamp(
+        u, min=torch.finfo(torch.float32).tiny)))
+    p = active.float()[None, :].expand(n, n).clone()
+    p.fill_diagonal_(0.0)
+    order = torch.sort(gumbel + torch.log(p), dim=1, descending=True,
+                       stable=True)
+    nbrs = order.indices[:, :k].to(torch.int32)
+    valid = torch.isfinite(order.values[:, :k]).float()
+    vals = valid / torch.clamp(valid.sum(dim=1, keepdim=True), min=1.0)
+    w = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    w.index_put_((torch.arange(n, device=dev).repeat_interleave(k),
+                  nbrs.reshape(-1).long()), vals.reshape(-1),
+                 accumulate=True)
+    return CollaborationGraph(
+        neighbors=nbrs, weights=w,
+        similarity=torch.zeros((n, n), dtype=torch.float32, device=dev),
+        candidates=active, slot_weights=vals)
 
 
 def graph_stats(g: CollaborationGraph) -> dict:

@@ -1,10 +1,15 @@
 """Server-side collaboration policies. Importing this package registers
-``sqmd``, the one policy this slice of the port carries."""
+the paper's four protocols (§IV-A): ``sqmd``, ``fedmd``, ``ddist`` and
+``isgd``."""
 from repro_torch.core.policies.base import (ServerPolicy, as_policy,
                                             get_policy, is_registered,
                                             register_policy,
                                             registered_policies)
+from repro_torch.core.policies.ddist import DDistPolicy
+from repro_torch.core.policies.fedmd import FedMDPolicy
+from repro_torch.core.policies.isgd import ISGDPolicy
 from repro_torch.core.policies.sqmd import SQMDPolicy
 
 __all__ = ["ServerPolicy", "as_policy", "get_policy", "is_registered",
-           "register_policy", "registered_policies", "SQMDPolicy"]
+           "register_policy", "registered_policies", "SQMDPolicy",
+           "FedMDPolicy", "DDistPolicy", "ISGDPolicy"]

@@ -53,20 +53,31 @@ def get_policy(name: str) -> Type["ServerPolicy"]:
                        f"{registered_policies()}") from None
 
 
-def as_policy(policy: Union[str, "ServerPolicy", "Protocol"]  # noqa: F821
-              ) -> "ServerPolicy":
-    """Coerce a policy instance / Protocol config / name into a policy."""
+def as_policy(policy: Union[str, "ServerPolicy", "Protocol"],  # noqa: F821
+              static_weights=None) -> "ServerPolicy":
+    """Coerce a policy instance / Protocol config / name into a policy.
+
+    ``static_weights`` (a dense (N,N) graph, numpy or tensor) goes to a
+    policy that carries a static graph (D-Dist); the others ignore it."""
     if isinstance(policy, ServerPolicy):
-        return policy
-    if isinstance(policy, str):
-        return get_policy(policy)()
-    return get_policy(policy.name)(policy)
+        pol = policy
+    elif isinstance(policy, str):
+        pol = get_policy(policy)()
+    else:
+        pol = get_policy(policy.name)(policy)
+    if static_weights is not None and (type(pol).attach_static_weights
+                                       is not ServerPolicy
+                                       .attach_static_weights):
+        pol.attach_static_weights(static_weights)
+    return pol
 
 
 class ServerPolicy(abc.ABC):
     """Base strategy: subclasses override ``build_graph``."""
 
     name: str = "?"                 # bound by @register_policy
+    uses_reference: bool = True     # False: no messengers, no server round
+    computes_similarity: bool = False  # True: graph.similarity -> state.sim
     # Neighbor-selection strategy, attached by the ServerBus: "exact"
     # keeps the dense (N,N) divergence path; "ivf" lets a policy that
     # supports it (SQMD) run its delta rounds on the approximate
@@ -85,6 +96,19 @@ class ServerPolicy(abc.ABC):
     @property
     def rho(self) -> float:
         return self.protocol.rho
+
+    @property
+    def interval(self) -> int:
+        return self.protocol.interval
+
+    def setup(self, generator: torch.Generator, n_clients: int) -> None:
+        """One-time hook at federation build (D-Dist draws its static
+        graph here). Default: nothing."""
+
+    def attach_static_weights(self, weights) -> None:
+        """Inject a pre-built static graph; only policies that carry one
+        (D-Dist) override this."""
+        raise ValueError(f"policy {self.name!r} takes no static graph")
 
     def grade(self, state, ref_labels: torch.Tensor) -> torch.Tensor:
         """(N,) Eq. 1 quality grades of the repository messengers."""
@@ -116,9 +140,11 @@ class ServerPolicy(abc.ABC):
         return state.active
 
     def update_state(self, state, quality: torch.Tensor, graph):
-        """Fold this round's quality, graph and divergence into the state."""
+        """Fold this round's quality, graph and divergence into the state.
+        A policy that computes no similarity keeps the previous ``sim``."""
+        sim = graph.similarity if self.computes_similarity else state.sim
         div = (graph.divergence if graph.divergence is not None
                else state.div_cache)
-        return state._replace(quality=quality, sim=graph.similarity,
+        return state._replace(quality=quality, sim=sim,
                               weights=graph.weights, div_cache=div,
                               round=state.round + 1)

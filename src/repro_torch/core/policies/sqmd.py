@@ -18,6 +18,8 @@ from repro_torch.core.policies.base import ServerPolicy, register_policy
 class SQMDPolicy(ServerPolicy):
     """Top-Q candidate pool by grade, top-K most-similar neighbors each."""
 
+    computes_similarity = True
+
     def __init__(self, protocol=None):
         super().__init__(protocol)
         self._ivf: Optional[sim_mod.NeighborIndex] = None  # built lazily

@@ -6,7 +6,8 @@
   * ``ServerBus`` — merges uploads into ``ServerState`` (stale rows are
     kept, never dropped), fires ``policy_round`` when its trigger says so
     (``EveryUpload``: after every delivery, the sync case) and puts the
-    targets on the downlink. It meters the wire bytes both ways.
+    targets on the downlink. It meters the wire bytes both ways. A round
+    without communication only ``observe``s the clients that trained.
 
 Clients outside a round's mask stay frozen and keep their stale
 repository row.
@@ -209,6 +210,16 @@ class ServerBus:
         self.n_triggers += 1
         self.uploads_since_fire = 0
         self.fresh_since_fire[:] = False
+
+    def observe(self, t: float, mask_np: np.ndarray) -> None:
+        """A round without communication (off the interval, or a policy
+        that uses no reference): mark the masked clients active and
+        advance the server's round counter; nothing fires."""
+        srv = self.fed.server
+        up = torch.as_tensor(np.asarray(mask_np, bool),
+                             device=srv.active.device)
+        self.fed.server = srv._replace(active=srv.active | up,
+                                       round=srv.round + 1)
 
     def staleness(self, now: float) -> dict:
         return staleness_summary(self.last_upload_t,

@@ -121,10 +121,13 @@ def policy_round(state: ServerState, policy, ref_labels: torch.Tensor,
     return policy.update_state(state, g, graph), targets, graph
 
 
-def server_round(state: ServerState, protocol, ref_labels: torch.Tensor
-                 ) -> Tuple[ServerState, torch.Tensor]:
+def server_round(state: ServerState, protocol, ref_labels: torch.Tensor,
+                 static_weights=None) -> Tuple[ServerState, torch.Tensor]:
     """One server round under a Protocol, policy instance or name.
-    Returns (new_state, targets (N,R,C) fp32)."""
+    Returns (new_state, targets (N,R,C) fp32). For "ddist" pass the
+    static graph's dense ``static_weights`` (or a policy after
+    ``setup``)."""
     from repro_torch.core.policies import as_policy
-    new, targets, _ = policy_round(state, as_policy(protocol), ref_labels)
+    pol = as_policy(protocol, static_weights=static_weights)
+    new, targets, _ = policy_round(state, pol, ref_labels)
     return new, targets

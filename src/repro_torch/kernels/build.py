@@ -6,7 +6,7 @@ Each ``csrc/<name>.cu`` compiles on its own with
          -Xcompiler -fPIC -Xptxas -v
 
 into ``build/kernels/<name>-<digest>.so`` under the checkout, at first
-use. The digest covers the sources and the flags, so an edited kernel is
+use. The digest covers the source and the flags, so an edited kernel is
 rebuilt and a stale library is never loaded. The sources have a plain C
 interface (pointers and the stream as ``void*``, each entry point
 returning ``cudaGetLastError()``), so a build takes seconds, not the
@@ -49,11 +49,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Each source stands alone (no shared header): its digest covers the
+    flags and its own text."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        if src.suffix == ".cuh" or src.stem == name:
-            h.update(src.name.encode())
-            h.update(src.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

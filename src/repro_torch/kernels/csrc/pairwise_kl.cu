@@ -45,6 +45,9 @@
 //    round-to-nearest, into the block's running sum: the truncated sums
 //    span 32 terms, not K. The epilogue writes (rowterm - acc) / R with
 //    the ragged edge masked; TMA fills rows past U or M with zeros.
+//    Without a row term (rowterm null) it stores acc itself: the plain
+//    product A B^T, which the dense Eq. 5 route (neighbor_mean.cu) runs
+//    on the planes of W and S^T.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -354,18 +357,20 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_hi,
   const int t = threadIdx.x % 128;
   const int row_base = r0 + g * 64 + (t / 32) * 16 + (t % 32) / 4;
   const int col_base = c0 + 2 * (t % 4);
+  const bool plain = rowterm == nullptr;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row_base + 8 * h;
     if (row >= U) continue;
-    const float rt = rowterm[row];
+    const float rt = plain ? 0.f : rowterm[row];
     float* dst = out + (size_t)row * M;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = col_base + 8 * j + e;
-        if (col < M) dst[col] = (rt - acc[4 * j + 2 * h + e]) / R;
+        const float a = acc[4 * j + 2 * h + e];
+        if (col < M) dst[col] = plain ? a : (rt - a) / R;
       }
     }
   }
@@ -433,8 +438,9 @@ extern "C" int pairwise_kl_split(const void* l, void* hi, void* lo,
 
 // a_hi, a_lo (U, Kp) and b_hi, b_lo (M, Kp) fp32 planes from
 // pairwise_kl_split (Kp a multiple of 32, rows 16-byte aligned), rowterm
-// (U,) fp32 -> out (U, M) fp32. Returns cudaGetLastError() after the
-// launch, or a refusal before it.
+// (U,) fp32 -> out (U, M) fp32, (rowterm - A B^T) / R; with rowterm null,
+// out = A B^T (R unused). Returns cudaGetLastError() after the launch, or
+// a refusal before it.
 extern "C" int pairwise_kl_pair(const void* a_hi, const void* a_lo,
                                 const void* b_hi, const void* b_lo,
                                 const void* rowterm, void* out, int U, int M,

@@ -52,6 +52,9 @@ def neighbor_gather(nbrs: torch.Tensor, w: torch.Tensor,
     if k > MAX_SLOTS:
         raise ValueError(f"{k} slots a row exceed {MAX_SLOTS}; a graph this "
                          f"dense takes the dense entry neighbor_mean")
+    if k == 0:              # no neighbor (I-SGD): zero targets, no launch
+        return torch.zeros((n, r, c), dtype=torch.float32,
+                           device=probs.device)
     out = torch.empty((n, r, c), dtype=torch.float32, device=probs.device)
     if out.numel() == 0:
         return out

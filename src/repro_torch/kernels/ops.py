@@ -28,6 +28,7 @@ _COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
              "soft_ce": (_sc, "launches"),
              "neighbor_gather": (_ng, "launches"),
              "neighbor_mean": (_nm, "launches"),
+             "neighbor_mean_split": (_nm, "split_launches"),
              "int8_pairwise_kl_split": (_dk, "split_launches"),
              "int8_pairwise_kl_thin": (_dk, "thin_launches"),
              "int8_pairwise_kl_pair": (_dk, "launches")}
@@ -92,7 +93,8 @@ def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def neighbor_mean(w: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     """Eq. 5 targets on a dense W (FedMD's complete graph). w (N,N),
-    probs (N,R,C) -> (N,R,C) fp32."""
+    probs (N,R,C) -> (N,R,C) fp32; on the card two splits and B1's 3xTF32
+    GEMM."""
     return _nm.neighbor_mean(w.float().contiguous(), probs.contiguous())
 
 

@@ -56,9 +56,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def split(logp: torch.Tensor, a_side: bool) -> Split:
+def split(logp: torch.Tensor, a_side: bool,
+          count: Optional[Callable[[], None]] = None) -> Split:
     """The split pass on the card: logp (rows,R,C) -> planes of p = exp(l)
-    and the row term (A side) or of l (B side), K padded to BK."""
+    and the row term (A side) or of l (B side), K padded to BK. A launch
+    adds one to ``split_launches``, or calls ``count`` instead (the dense
+    Eq. 5 route splits W with it and counts that as its own)."""
     global split_launches
     _check("logp", logp)
     rows, r, c = logp.shape
@@ -76,22 +79,28 @@ def split(logp: torch.Tensor, a_side: bool) -> Split:
                   int(a_side), int(logp.dtype == torch.bfloat16),
                   _stream(logp))
         build.check(SPLIT, code)
-        split_launches += 1
+        if count is None:
+            split_launches += 1
+        else:
+            count()
     return Split(planes, rowterm, r)
 
 
 def gemm(a: Split, b: Split, out: Optional[torch.Tensor] = None,
          count: Optional[Callable[[], None]] = None) -> torch.Tensor:
-    """The 3xTF32 GEMM over split operands -> (U, M) fp32 strip, written
-    into ``out`` (a contiguous (U, M) fp32 view) when one is given. A
-    launch adds one to ``launches``, or calls ``count`` instead (the int8
-    route counts the GEMMs it runs as its own)."""
+    """The 3xTF32 GEMM over split operands -> (U, M) fp32, written into
+    ``out`` (a contiguous (U, M) fp32 view) when one is given: the Eq. 2
+    strip (rowterm - A B^T) / R when ``a`` carries a row term (an A-side
+    split), else the plain product A B^T. A launch adds one to
+    ``launches``, or calls ``count`` instead (the int8 route and the dense
+    Eq. 5 route count the GEMMs they run as their own)."""
     global launches
     (_, u, k_pad), m = a.planes.shape, b.planes.shape[1]
-    if a.rowterm is None or b.rowterm is not None \
-            or b.planes.shape[2] != k_pad or a.r != b.r:
-        raise ValueError("gemm takes an A-side and a B-side split of one "
-                         "messenger shape")
+    if b.rowterm is not None or b.planes.shape[2] != k_pad \
+            or (a.rowterm is not None and a.r != b.r):
+        raise ValueError("gemm takes an A operand (an A-side split, or "
+                         "planes without a row term) and a B-side split "
+                         "of one k extent")
     if out is None:
         out = torch.empty((u, m), dtype=torch.float32,
                           device=a.planes.device)
@@ -103,8 +112,8 @@ def gemm(a: Split, b: Split, out: Optional[torch.Tensor] = None,
     fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
     code = fn(a.planes[0].data_ptr(), a.planes[1].data_ptr(),
               b.planes[0].data_ptr(), b.planes[1].data_ptr(),
-              a.rowterm.data_ptr(), out.data_ptr(), u, m, k_pad, a.r,
-              _stream(out))
+              None if a.rowterm is None else a.rowterm.data_ptr(),
+              out.data_ptr(), u, m, k_pad, a.r, _stream(out))
     build.check(ENTRY, code)
     if count is None:
         launches += 1

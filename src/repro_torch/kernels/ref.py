@@ -54,14 +54,21 @@ def pairwise_kl_split_ref(logp: torch.Tensor, a_side: bool, k_pad: int):
     return planes, (torch.sum(x * lf, dim=-1) if a_side else None)
 
 
+def tf32x3_ref(a_planes: torch.Tensor,
+               b_planes: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 product of split operands, A B^T as hi(a) hi(b) +
+    hi(a) lo(b) + lo(a) hi(b) (lo lo dropped), each an fp32 matmul;
+    planes (2, U, Kp) and (2, M, Kp) -> (U, M). The plain version of the
+    GEMM's plain-store mode (the dense Eq. 5 route)."""
+    (ah, al), (bh, bl) = a_planes, b_planes
+    return ah @ bh.T + ah @ bl.T + al @ bh.T
+
+
 def pairwise_kl_gemm_ref(a_planes: torch.Tensor, rowterm: torch.Tensor,
                          b_planes: torch.Tensor, r: int) -> torch.Tensor:
     """Eq. 2 strip from split operands: (rowterm - cross) / R with the
-    cross term as hi(p) hi(l) + hi(p) lo(l) + lo(p) hi(l) (lo lo
-    dropped), each product an fp32 matmul -> (U, M)."""
-    (ah, al), (bh, bl) = a_planes, b_planes
-    cross = ah @ bh.T + ah @ bl.T + al @ bh.T
-    return (rowterm[:, None] - cross) / r
+    cross term ``tf32x3_ref`` -> (U, M)."""
+    return (rowterm[:, None] - tf32x3_ref(a_planes, b_planes)) / r
 
 
 def int8_dequant_ref(q: torch.Tensor, scale: torch.Tensor,
@@ -130,6 +137,21 @@ def neighbor_mean_ref(w: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
     n, r, c = probs.shape
     t = w.float() @ probs.float().reshape(n, r * c)
     return t.reshape(n, r, c)
+
+
+def neighbor_mean_split_ref(probs: torch.Tensor,
+                            k_pad: int) -> torch.Tensor:
+    """The transposing split of the dense Eq. 5 route: probs (N,R,C) ->
+    planes (2, R*C, k_pad) fp32 of S^T, hi = tf32(S^T) and lo =
+    tf32(S^T - hi), zero for n >= N."""
+    n = probs.shape[0]
+    st = probs.float().reshape(n, -1).T
+    hi = tf32_round(st)
+    planes = torch.zeros((2, st.shape[0], k_pad), dtype=torch.float32,
+                         device=probs.device)
+    planes[0, :, :n] = hi
+    planes[1, :, :n] = tf32_round(st - hi)
+    return planes
 
 
 def neighbor_gather_ref(nbrs: torch.Tensor, w: torch.Tensor,

@@ -1,6 +1,8 @@
-"""Run the synchronous SQMD federation of the port from the shell.
+"""Run the port's synchronous federation from the shell, under SQMD or a
+baseline (``--policy fedmd|ddist|isgd``).
 
   python -m repro_torch.launch.federate --device cuda --rounds 40
+  python -m repro_torch.launch.federate --policy fedmd --interval 2
   python -m repro_torch.launch.federate --schedule staged-join \
       --dataset sc_like --device cpu
   python -m repro_torch.launch.federate --delta --selection ivf \
@@ -34,6 +36,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--q", type=int, default=16)
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--rho", type=float, default=0.8)
+    ap.add_argument("--interval", type=int, default=1,
+                    help="communication interval I: upload and fire the "
+                         "server every I rounds")
     ap.add_argument("--schedule", choices=("always-on", "staged-join"),
                     default="always-on")
     ap.add_argument("--stages", type=int, default=3,
@@ -60,6 +65,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be >= 1")
+    if args.interval < 1:
+        ap.error("--interval must be >= 1")
     if args.selection == "ivf" and not args.delta:
         ap.error("--selection ivf requires --delta (the approximate index "
                  "only exists on the incremental graph path)")
@@ -77,7 +84,8 @@ def main(argv=None) -> dict:
         per = max(1, args.rounds // args.stages)
         schedule = StagedJoin([(i % args.stages) * per
                                for i in range(ds.n_clients)])
-    protocol = Protocol(args.policy, rho=args.rho, q=args.q, k=args.k)
+    protocol = Protocol(args.policy, rho=args.rho, q=args.q, k=args.k,
+                        interval=args.interval)
     config = FederationConfig(rounds=args.rounds, batch_size=args.batch,
                               eval_every=args.eval_every,
                               delta_graph=args.delta,
@@ -94,7 +102,8 @@ def main(argv=None) -> dict:
     hist = engine.fit(splits)
     prec, rec = precision_recall(engine.fed, splits, ds.n_classes)
     summary = {
-        "policy": args.policy, "dataset": args.dataset,
+        "policy": args.policy, "interval": args.interval,
+        "dataset": args.dataset,
         "schedule": args.schedule, "rounds": args.rounds,
         "delta": args.delta, "selection": args.selection,
         "uplink": args.uplink, "downlink": args.downlink,

@@ -50,9 +50,14 @@ def _record_fires(bus, out):
     bus.fire = recording
 
 
-def _run_both(**server):
-    """The fixture federation in both packages, with ``server`` config
-    (delta_graph / selection / uplink / downlink) on both sides."""
+def _run_both(jprotocol=None, tprotocol=None, **server):
+    """The fixture federation in both packages, under ``jprotocol`` (the
+    reference's) and ``tprotocol`` (the port's; both sqmd(q=8, k=4) by
+    default), with ``server`` config (delta_graph / selection / uplink /
+    downlink) on both sides. A policy with a static graph (D-Dist) gets
+    the reference's own draw through ``build(static_weights=)``."""
+    if jprotocol is None:
+        jprotocol, tprotocol = jax_sqmd(q=8, k=4), sqmd(q=8, k=4)
     ds = jax_pad_like(samples_per_client=30, ref_size=30, length=24)
     splits = jax_make_splits(ds, seed=0)
     zoo = jax_zoo(ds.feature_len, ds.n_classes)
@@ -68,7 +73,7 @@ def _run_both(**server):
                 jax.vmap(coh.apply_fn)(coh.params, jnp.asarray(xs)))
         jlogits.append(out)
 
-    jeng = JaxEngine.build(ds, splits, zoo, assignment, jax_sqmd(q=8, k=4),
+    jeng = JaxEngine.build(ds, splits, zoo, assignment, jprotocol,
                            config=JaxConfig(**CFG, **server, backend="jnp"),
                            seed=SEED, callbacks=[jcb])
     jfires, tfires = [], []
@@ -97,11 +102,13 @@ def _run_both(**server):
                 out[coh.client_ids] = coh.model(torch.from_numpy(xs)).numpy()
         tlogits.append(out)
 
+    static = getattr(jeng.policy, "static_weights", None)
     teng = FederationEngine.build(
         pds, psplits, hetero_mlp_zoo(pds.feature_len, pds.n_classes),
-        assignment, sqmd(q=8, k=4), config=FederationConfig(**CFG, **server),
+        assignment, tprotocol, config=FederationConfig(**CFG, **server),
         seed=SEED, callbacks=[tcb], device="cpu", init_params=init_params,
-        batch_indices=lambda step, ci: draws[step, ci])
+        batch_indices=lambda step, ci: draws[step, ci],
+        static_weights=None if static is None else np.asarray(static))
     _record_fires(teng.bus, tfires)
     thist = teng.fit(psplits)
     return dict(jeng=jeng, teng=teng, jhist=jhist, thist=thist,

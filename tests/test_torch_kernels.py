@@ -174,6 +174,79 @@ def test_neighbor_mean_matches_pallas(pallas, shape, dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
+def _fedmd_w(n: int, seed: int) -> np.ndarray:
+    """FedMD's complete graph over a random two-thirds of n clients: every
+    row 1/n_active on the active columns (not exact in TF32), 0 else."""
+    active = np.random.default_rng(seed).random(n) < 2 / 3
+    active[0] = True
+    return np.tile(active / np.float32(active.sum()),
+                   (n, 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(7, 13, 5), (9, 50, 26), (37, 13, 5)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_neighbor_mean_on_a_dense_fedmd_w_matches_pallas(pallas, shape,
+                                                         dtype):
+    """The dense entry's plain version on FedMD's complete graph, against
+    the Pallas kernel in interpret mode with blocks that divide neither N
+    nor R*C."""
+    n, r, c = shape
+    w = _fedmd_w(n, 31)
+    j, t = _as_dtype(pallas.jnp, np.exp(_messengers(n, r, c, 32)), dtype)
+    want = np.asarray(pallas.neighbor_mean(pallas.jnp.asarray(w), j, bn=8,
+                                           bj=8, bk=32, interpret=True))
+    got = ops.neighbor_mean(torch.from_numpy(w), t)
+    assert got.dtype == torch.float32 and got.shape == (n, r, c)
+    tol = TOL["neighbor_mean"][dtype]
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
+def test_transposing_split_planes_rebuild_s_transposed():
+    """S^T's planes: hi + lo equals S^T to ~2^-22 relative, every value a
+    TF32, zero past N (K padded to the GEMM's k-tile)."""
+    n, r, c = 37, 13, 5
+    probs = torch.exp(torch.from_numpy(_messengers(n, r, c, 33)))
+    k_pad = -(-n // pk_mod.BK) * pk_mod.BK
+    planes = ref.neighbor_mean_split_ref(probs, k_pad)
+    assert planes.shape == (2, r * c, k_pad) and k_pad == 64
+    st = probs.reshape(n, -1).T.double()
+    back = planes[0, :, :n].double() + planes[1, :, :n].double()
+    assert float(((back - st).abs() / st.abs()).max()) <= 2.0 ** -21
+    assert bool((planes[:, :, n:] == 0).all())
+    assert bool(((planes.view(torch.int32) & 0x1FFF) == 0).all())
+
+
+def test_dense_route_error_within_twice_fp32():
+    """The dense Eq. 5 route's arithmetic (W's split, S's transposing
+    split, the 3xTF32 plain product) at FedMD's weights: as close to
+    fp64 as the fp32 product, within 2x; plain TF32 would not be."""
+    n, r, c = 300, 24, 10
+    w = torch.from_numpy(_fedmd_w(n, 34))
+    probs = torch.exp(torch.from_numpy(_messengers(n, r, c, 35)))
+    k_pad = -(-n // pk_mod.BK) * pk_mod.BK
+    a_planes, _ = ref.pairwise_kl_split_ref(w.view(n, n, 1), False, k_pad)
+    b_planes = ref.neighbor_mean_split_ref(probs, k_pad)
+    got = ref.tf32x3_ref(a_planes, b_planes).double()
+    exact = w.double() @ probs.reshape(n, -1).double()
+    e3 = float((got - exact).abs().max())
+    e32 = float((ref.neighbor_mean_ref(w, probs).reshape(n, -1).double()
+                 - exact).abs().max())
+    assert e3 <= 2 * e32, (e3, e32)
+    e1 = float(((a_planes[0] @ b_planes[0].T).double() - exact).abs().max())
+    assert e1 > 50 * e32
+
+
+def test_neighbor_gather_with_no_slots_is_zero():
+    """I-SGD's (N, 0) lists: zero targets, no launch, on the CPU and (by
+    the wrapper's guard) before any device check."""
+    ops.reset_launch_counts()
+    probs = torch.exp(torch.from_numpy(_messengers(5, 6, 3, 36)))
+    got = ops.neighbor_gather(torch.zeros((5, 0), dtype=torch.int32),
+                              torch.zeros((5, 0)), probs)
+    assert got.shape == (5, 6, 3) and float(got.abs().max()) == 0.0
+    assert ops.launch_counts()["neighbor_gather"] == 0
+
+
 @pytest.mark.parametrize("shape", INT8_SHAPES)
 def test_int8_pairwise_kl_pair_matches_pallas(pallas, shape):
     """B4's plain version against the Pallas kernel in interpret mode
@@ -528,6 +601,7 @@ def test_cpu_calls_count_no_launches():
     assert ops.launch_counts() == {"pairwise_kl_split": 0,
                                    "pairwise_kl_pair": 0, "soft_ce": 0,
                                    "neighbor_gather": 0, "neighbor_mean": 0,
+                                   "neighbor_mean_split": 0,
                                    "int8_pairwise_kl_split": 0,
                                    "int8_pairwise_kl_thin": 0,
                                    "int8_pairwise_kl_pair": 0}
@@ -536,6 +610,7 @@ def test_cpu_calls_count_no_launches():
 @pytest.mark.parametrize("call", ["pairwise_kl", "soft_ce", "neighbor_mean",
                                   "int8_pairwise_kl", "neighbor_gather",
                                   "pairwise_kl_split",
+                                  "neighbor_mean_split",
                                   "int8_pairwise_kl_split",
                                   "int8_pairwise_kl_thin"])
 def test_non_cpu_tensor_never_takes_the_plain_version(call):
@@ -557,6 +632,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(call):
                                              device="meta"),
                                  torch.empty((4, 2), device="meta"), z)),
             "pairwise_kl_split": (pk_mod.split, (z, True)),
+            "neighbor_mean_split": (nm_mod.split_t, (z,)),
             "int8_pairwise_kl_split": (dk_mod.split, (q, s, True)),
             "int8_pairwise_kl_thin": (dk_mod.thin, (q[:1], s[:1], q, s))}
     fn, a = args[call]
@@ -607,6 +683,12 @@ def test_wrapper_matches_its_c_entry_point(mod):
         assert set(mod.ENTRIES) == {"int8_pairwise_kl_split",
                                     "int8_pairwise_kl_thin"}
         assert "dequant_kl_pair_kernel" not in src   # the FFMA tile is gone
+    if mod is nm_mod:
+        # the dense Eq. 5 route: the transposing split here, W's split and
+        # the GEMM B1's; the FFMA tile and its header are gone
+        assert set(mod.ENTRIES) == {"neighbor_mean_split"}
+        assert "neighbor_mean_kernel" not in src
+        assert not list(build.CSRC.glob("*.cuh"))
 
 
 def test_package_imports_neither_jax_nor_the_reference():
@@ -678,10 +760,12 @@ def test_cuda_kernels_match_plain(hopper, shape, dtype):
         assert got.is_cuda and got.dtype == torch.float32
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    atol=tol, rtol=tol)
-    # each Eq. 2 call splits both operands (2 launches) then runs one GEMM
+    # each Eq. 2 call splits both operands (2 launches) then runs one GEMM;
+    # the dense Eq. 5 route splits W and S, then runs its GEMM
     assert ops.launch_counts() == {"pairwise_kl_split": 4,
                                    "pairwise_kl_pair": 2, "soft_ce": 1,
                                    "neighbor_gather": 1, "neighbor_mean": 1,
+                                   "neighbor_mean_split": 2,
                                    "int8_pairwise_kl_split": 0,
                                    "int8_pairwise_kl_thin": 0,
                                    "int8_pairwise_kl_pair": 0}
@@ -724,6 +808,60 @@ def test_cuda_pairwise_kl_thin_strips(hopper, u, m, rc):
     assert got.shape == (u, m)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 8, 3), (37, 13, 5), (130, 240, 10),
+                                   (257, 7, 9)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_transposing_split_matches_plain(hopper, shape, dtype):
+    """S^T's planes bit for bit (no exp: the same rounding on the same
+    bits), ragged N and R*C, fp32 and bf16, aligned and scalar loads."""
+    n, r, c = shape
+    probs = torch.exp(torch.from_numpy(_messengers(n, r, c, 37))).to(
+        hopper, getattr(torch, dtype))
+    got = nm_mod.split_t(probs)
+    want = ref.neighbor_mean_split_ref(probs, got.planes.shape[2])
+    torch.cuda.synchronize()
+    assert got.planes.shape[2] % pk_mod.BK == 0 and got.rowterm is None
+    assert torch.equal(got.planes, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,rc", [(4, 24), (37, 65), (300, 2400),
+                                  (129, 257)])
+def test_cuda_plain_store_gemm_matches_plain(hopper, n, rc):
+    """B1's GEMM in its plain-store mode on the dense route's planes, and
+    the route as ``ops.neighbor_mean`` runs it, against their plain
+    versions on FedMD's weights; launches counted under neighbor_mean."""
+    w = torch.from_numpy(_fedmd_w(n, 38)).to(hopper)
+    probs = torch.from_numpy(np.random.default_rng(39).random(
+        (n, rc, 1), dtype=np.float32)).to(hopper)
+    a, b = nm_mod.split_w(w), nm_mod.split_t(probs)
+    got = pk_mod.gemm(a, b)
+    want = ref.tf32x3_ref(a.planes, b.planes)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-6, rtol=1e-5)
+    ops.reset_launch_counts()
+    t = ops.neighbor_mean(w, probs)
+    np.testing.assert_allclose(t.cpu().numpy(),
+                               ref.neighbor_mean_ref(w, probs).cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+    counts = ops.launch_counts()
+    assert counts["neighbor_mean"] == 1 and counts["neighbor_mean_split"] == 2
+    assert counts["pairwise_kl_split"] == counts["pairwise_kl_pair"] == 0
+
+
+@pytest.mark.gpu
+def test_cuda_neighbor_gather_with_no_slots_launches_nothing(hopper):
+    ops.reset_launch_counts()
+    probs = torch.ones((6, 4, 3), device=hopper)
+    got = ops.neighbor_gather(torch.zeros((6, 0), dtype=torch.int32,
+                                          device=hopper),
+                              torch.zeros((6, 0), device=hopper), probs)
+    assert got.is_cuda and float(got.abs().max()) == 0.0
+    assert ops.launch_counts()["neighbor_gather"] == 0
 
 
 @pytest.mark.gpu
