@@ -71,9 +71,30 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     numpy-made static graph passed as ``static_weights`` (the gather
     every round, no dense route) and isgd() (no server kernel, no wire
     byte);
-13. a ``{"kernels": [...]}`` summary line (B1, B2 and the gather's
-    launches from phase 5, B4's three kernels' from phase 9, the dense
-    Eq. 5 route's from phase 12's FedMD federation), then the last line
+14. the asynchronous federation (``AsyncFederationEngine.fit(until=9)``)
+    on phase 5's ``sc_like`` inputs, batch 16, two local steps a wake, in
+    fig. 4's regimes: facilities joining at 0/3/6 through the schedule
+    shim, under sqmd(q=16, k=8) and then fedmd() (B3's dense route);
+    ``StragglerLatency(0.3, 2.5)`` with ``Quorum(0.5)`` and delta rounds;
+    ``BurstyArrivals()`` with every-k (k=8) on the IVF index and the int8
+    uplink (one upload event a client, B4's thin kernel). Each with its
+    launches, every state tensor (in-flight uploads included) on the
+    card, and its History and eval logits held against its CPU run;
+15. the asynchronous server at N=4096 (R=240, C=10, sqmd(q=64, k=8),
+    delta rounds, dense32): a ``ServerBus`` driven through a ``Clock``
+    by ``StragglerLatency(0.3, 2.5)`` with ``Quorum(0.5)`` to t=3, then
+    by one burst of ``BurstyArrivals(frac=0.6, jitter=0.5)`` with every-k
+    (k=64) to t=0.5 (~2443 deliveries of one row, 38 fires), with
+    numpy-seeded messengers at each wake and no client training. Every
+    fire is held against the same repository's round on the plain
+    versions (delta cache, neighbor sets, targets), with its u, bucketed
+    strip, launches and wall time; per regime the delivery times without
+    their fires (median and max), one fire and one delivery that fires
+    nothing under torch.profiler;
+13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
+    gather's launches from phase 5, B4's three kernels' from phase 9,
+    the dense Eq. 5 route's from phase 12's FedMD federation, each plus
+    its launches in phases 14 and 15), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
@@ -754,7 +775,19 @@ def federation(dev, splits, ds, init_params, draws, logits_out, server,
     (sqmd(q=16, k=8) by default) and ``server`` config."""
     from repro_torch.core import FederationConfig, FederationEngine, sqmd
     from repro_torch.models import hetero_mlp_zoo
+    return FederationEngine.build(
+        ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
+        protocol or sqmd(q=16, k=8),
+        config=FederationConfig(rounds=5, batch_size=32, eval_every=2,
+                                **server),
+        seed=1, callbacks=[logit_recorder(splits, logits_out)], device=dev,
+        init_params=init_params,
+        batch_indices=lambda step, ci: draws(step, ci),
+        static_weights=static_weights)
 
+
+def logit_recorder(splits, logits_out):
+    """An eval callback keeping every family's test logits (numpy)."""
     def record(engine, rnd, metrics):
         out = {}
         for coh in engine.fed.cohorts:
@@ -764,15 +797,27 @@ def federation(dev, splits, ds, init_params, draws, logits_out, server,
             with torch.no_grad():
                 out[coh.family_name] = coh.model(xs).float().cpu().numpy()
         logits_out.append(out)
+    return record
 
-    return FederationEngine.build(
+
+def async_federation(dev, inputs, run: str, logits_out, protocol=None):
+    """The asynchronous sc_like federation of regime ``run`` (async_run)
+    on ``dev``: the three MLP tiers, batch 16, two local steps a wake,
+    evals every ASYNC_EVAL_EVERY virtual seconds, under ``protocol``
+    (sqmd(q=16, k=8) by default)."""
+    from repro_torch.core import (AsyncFederationEngine, FederationConfig,
+                                  sqmd)
+    from repro_torch.models import hetero_mlp_zoo
+    ds, splits, init_params, draws = inputs
+    arrivals, trigger, server = async_run(run, ds.n_clients)
+    return AsyncFederationEngine.build(
         ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
-        protocol or sqmd(q=16, k=8),
-        config=FederationConfig(rounds=5, batch_size=32, eval_every=2,
-                                **server),
-        seed=1, callbacks=[record], device=dev, init_params=init_params,
-        batch_indices=lambda step, ci: draws(step, ci),
-        static_weights=static_weights)
+        protocol or sqmd(q=16, k=8), arrivals=arrivals, trigger=trigger,
+        config=FederationConfig(batch_size=16, local_steps=2,
+                                eval_every=ASYNC_EVAL_EVERY, **server),
+        seed=1, callbacks=[logit_recorder(splits, logits_out)], device=dev,
+        init_params=init_params,
+        batch_indices=lambda step, ci: draws(step, ci, 16))
 
 
 def federation_inputs():
@@ -796,38 +841,56 @@ def federation_inputs():
         init_params[fam] = {"layers": layers}
         sizes.append((len(ids), min(len(splits[i].train_y) for i in ids)))
 
-    def draws(step, ci):
+    def draws(step, ci, batch=32):
         n_c, m = sizes[ci]
-        return np.random.default_rng((3, step, ci)).integers(0, m, (n_c, 32))
+        return np.random.default_rng((3, step, ci)).integers(0, m,
+                                                             (n_c, batch))
 
     return ds, splits, init_params, draws
 
 
 def federation_phase(dev, server: dict, path: tuple, inputs,
                      protocol=None, static_weights=None,
-                     exact=None) -> dict:
+                     exact=None, run=None, required=None) -> dict:
     """The 5-round sc_like federation under ``protocol`` (sqmd(q=16, k=8)
     by default) with ``server`` (FederationConfig's delta/selection/codec
     settings) on the card, then on the CPU with the same weights and
-    draws. Fails unless every kernel in ``path`` launched during the
-    card's fit, every other kernel launched 0 times, and each kernel in
-    ``exact`` launched exactly that many times."""
+    draws; with ``run`` (a regime of ``async_run``) the asynchronous
+    federation of that regime up to ASYNC_UNTIL instead. Fails unless
+    every kernel in ``required`` (default: all of ``path``) launched
+    during the card's fit, every kernel off ``path`` launched 0 times,
+    and each kernel in ``exact`` launched exactly that many times; and
+    unless both runs keep the same History bookkeeping (times, server
+    rounds, staleness, wire bytes) and eval logits within 1e-2."""
     from repro_torch.kernels import ops
     ds, splits, init_params, draws = inputs
+
+    def build(d, logits_out):
+        if run is None:
+            return federation(d, splits, ds, init_params, draws, logits_out,
+                              server, protocol, static_weights)
+        return async_federation(d, inputs, run, logits_out, protocol)
+
+    def fit(eng):
+        if run is None:
+            return eng.fit(splits)
+        return eng.fit(splits, until=ASYNC_UNTIL)
+
+    what = "5 rounds" if run is None else f"t <= {ASYNC_UNTIL} ({run})"
     card_logits, cpu_logits = [], []
-    eng = federation(dev, splits, ds, init_params, draws, card_logits,
-                     server, protocol, static_weights)
+    eng = build(dev, card_logits)
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    hist = eng.fit(splits)
+    hist = fit(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    for rnd, acc in zip(hist.rounds, hist.mean_acc):
-        print(f"  round {rnd}: mean test accuracy {acc:.4f}")
-    print(f"  [{CARD}] fit: {wall:.3f} s for 5 rounds, launches {counts}")
-    check(all(counts[k] > 0 for k in path),
+    for rnd, t, acc in zip(hist.rounds, hist.times, hist.mean_acc):
+        print(f"  round {rnd} (t={t:g}): mean test accuracy {acc:.4f}")
+    print(f"  [{CARD}] fit: {wall:.3f} s for {what}, server rounds "
+          f"{hist.server_rounds[-1]}, launches {counts}")
+    check(all(counts[k] > 0 for k in (required or path)),
           f"a kernel of this path never launched: {counts}")
     check(all(v == 0 for k, v in counts.items() if k not in path),
           f"a kernel off this path launched: {counts}")
@@ -842,6 +905,11 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     for coh in fed.cohorts:
         tensors += [*coh.model.parameters(), coh.opt_state.step,
                     *coh.opt_state.momentum, *coh.data.values()]
+    if run is not None:
+        # uploads still in flight past the horizon hold their payloads
+        for *_, ev in eng.clock._heap:
+            if ev.kind == "upload":
+                tensors += list(ev.payload[1].arrays.values())
     index = getattr(eng.policy, "_ivf", None)
     check((index is not None) == (server.get("selection") == "ivf"),
           "the IVF index is missing or unexpected")
@@ -853,10 +921,11 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     check(all(t.is_cuda for t in tensors), "a state tensor is off the card")
     print(f"  all {len(tensors)} state tensors on {fed.device}")
 
-    cpu = federation("cpu", splits, ds, init_params, draws, cpu_logits,
-                     server, protocol, static_weights)
-    cpu_hist = cpu.fit(splits)
+    cpu = build("cpu", cpu_logits)
+    cpu_hist = fit(cpu)
     worst, flips = 0.0, 0
+    check(len(card_logits) == len(cpu_logits) == len(hist.rounds),
+          "the card and CPU runs evaluated at different points")
     for gpu_ev, cpu_ev in zip(card_logits, cpu_logits):
         for fam in gpu_ev:
             g, h = gpu_ev[fam], cpu_ev[fam]
@@ -871,13 +940,17 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
           f"{flips} near-tie prediction flips; CPU mean accuracy "
           f"{cpu_hist.mean_acc}")
     check(worst < 1e-2, "card and CPU federations drifted apart")
-    check(all(np.isfinite(hist.mean_acc)) and len(hist.mean_acc) == 3,
+    n_evals = 3 if run is None else len(np.arange(0.0, ASYNC_UNTIL + 1e-9,
+                                                  ASYNC_EVAL_EVERY))
+    check(all(np.isfinite(hist.mean_acc)) and len(hist.mean_acc) == n_evals,
           "bad accuracy history")
-    check(cpu_hist.bytes_up == hist.bytes_up
-          and cpu_hist.bytes_down == hist.bytes_down,
-          "card and CPU runs metered different wire bytes")
+    for key in ("rounds", "times", "server_rounds", "staleness", "bytes_up",
+                "bytes_down"):
+        check(getattr(cpu_hist, key) == getattr(hist, key),
+              f"card and CPU runs kept different History.{key}")
     return {"launches": counts, "fit_s": wall, "mean_acc": hist.mean_acc,
             "cpu_mean_acc": cpu_hist.mean_acc, "logit_max_abs_diff": worst,
+            "times": hist.times, "server_rounds": hist.server_rounds,
             "bytes_up": hist.bytes_up[-1], "bytes_down": hist.bytes_down[-1]}
 
 
@@ -930,6 +1003,209 @@ def warm_fits(dev, inputs) -> dict:
     eng = federation(dev, splits, ds, init_params, draws, [], {})
     out["dense_profile"] = device_breakdown("warm dense 5-round fit",
                                             lambda: eng.fit(splits))
+    return out
+
+
+def async_federation_phase(dev, inputs) -> dict:
+    """The asynchronous sc_like federation in fig. 4's regimes, each held
+    against its CPU run: (a) facilities joining at 0/3/6 through the
+    schedule shim, under sqmd(q=16, k=8), then fedmd() (B3's dense
+    route); (b) stragglers landing 2.5 late on a quorum, delta rounds;
+    (c) bursty single-row uploads fired every 8 rows on the IVF index and
+    the int8 uplink (B4's thin kernel)."""
+    from repro_torch.core import fedmd
+    out = {}
+    for label, run, protocol, path, required in (
+            ("staged-sqmd", "staged", None, DENSE_PATH, None),
+            ("staged-fedmd", "staged", fedmd(), FEDMD_PATH, None),
+            ("straggler-quorum-delta", "straggler", None, DENSE_PATH, None),
+            ("bursty-every-k-ivf-int8", "bursty", None, IVF_PATH,
+             ("soft_ce", "neighbor_gather", "int8_pairwise_kl_thin"))):
+        print(f"  -- {label}")
+        out[label] = federation_phase(
+            dev, async_run(run, inputs[0].n_clients)[2], path, inputs,
+            protocol, run=run, required=required)
+    return out
+
+
+def async_server_phase(dev) -> dict:
+    """A ServerBus at the server-round size driven through a Clock by an
+    arrival process, numpy-seeded messengers at each wake, no client
+    training: (a) StragglerLatency(0.3, 2.5) with Quorum(0.5) to t=3;
+    (b) one burst of BurstyArrivals(frac=0.6, jitter=0.5), one delivery
+    a client, fired every 64 rows, to t=0.5. Every fire is held against
+    the same repository's round on the plain versions (the delta cache
+    against the plain divergence matrix, neighbor sets, targets), with
+    its u, bucketed strip, launches and wall time; each regime's
+    delivery times and one fire under torch.profiler."""
+    from repro_torch.core import (BurstyArrivals, Clock, EveryKUploads,
+                                  Federation, Quorum, ServerBus,
+                                  StragglerLatency, candidate_mask,
+                                  init_server, select_neighbors_from_div,
+                                  sqmd, wire)
+    from repro_torch.core.policies import as_policy
+    from repro_torch.core.similarity import _bucket_rows
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import sgd
+    n, r, c = SERVER
+    q, k = 64, 8
+    rng = np.random.default_rng(0)
+    labels = torch.from_numpy(rng.integers(0, c, r).astype(np.int32)).to(dev)
+
+    def plain_round(state):
+        lp = state.repo_logp
+        quality = ref.soft_ce_ref(lp, labels)
+        cand = candidate_mask(quality, state.active, q)
+        div = torch.cat([ref.pairwise_kl_pair_ref(lp[i:i + ops.CHUNK_ROWS],
+                                                  lp)
+                         for i in range(0, n, ops.CHUNK_ROWS)])
+        g = select_neighbors_from_div(div, cand, k)
+        return quality, div, g, ref.neighbor_gather_ref(
+            g.neighbors, g.slot_weights, torch.exp(lp))
+
+    out = {}
+    # profile_at: the fire run under the profiler; quiet: a delivery that
+    # fires nothing (the t=2.5 stragglers' 1229 rows against a quorum of
+    # 2048; the burst's second row against k=64), also profiled
+    for name, arrivals, trigger, until, profile_at, quiet in (
+            ("straggler-quorum", StragglerLatency(0.3, 2.5), Quorum(frac=0.5),
+             3.0, 1, 3),
+            ("bursty-every-k", BurstyArrivals(frac=0.6, jitter=0.5),
+             EveryKUploads(k=64), 0.5, 5, 1)):
+        fed = Federation(cohorts=[], server=init_server(n, r, c, device=dev),
+                         ref_x=torch.zeros((r, 1), device=dev), ref_y=labels,
+                         optimizer=sgd(0.05), n_clients=n,
+                         generator=torch.Generator(device=dev))
+        bus = ServerBus(fed, as_policy(sqmd(q=q, k=k)), trigger=trigger,
+                        delta=True)
+        fires, deliveries, fire_ms = [], [], [0.0]
+        fire = bus.fire
+
+        def checked_fire(t):
+            entered = time.perf_counter()
+            rows = np.nonzero(bus.fresh_since_fire)[0]
+            full = rows.size >= n          # u = N rebuilds the matrix
+            strip = n if full else len(_bucket_rows(rows))
+            before = ops.launch_counts()
+            if len(fires) == profile_at:
+                prof = device_breakdown(f"{name}: fire {len(fires)} at "
+                                        f"t={t:g}, u={rows.size}",
+                                        lambda: fire(t))
+                ms = prof["wall_ms"]
+            else:
+                prof = None
+                _, ms = timed(lambda: fire(t))
+            after = ops.launch_counts()
+            launches = {kk: after[kk] - before[kk] for kk in after
+                        if after[kk] != before[kk]}
+            # a delta round: two strips, each splitting both sides; a
+            # rebuild: one split a side, a GEMM a CHUNK_ROWS strip
+            check(launches == {"pairwise_kl_split": 2 if full else 4,
+                               "pairwise_kl_pair": -(-n // ops.CHUNK_ROWS)
+                               if full else 2,
+                               "soft_ce": 1, "neighbor_gather": 1},
+                  f"{name}: fire {len(fires)} launched {launches}")
+            state = fed.server
+            quality, div, g, ptargets = plain_round(state)
+            atol, rtol = TOL["soft_ce"]
+            check(torch.allclose(state.quality, quality, atol=atol,
+                                 rtol=rtol),
+                  f"{name}: fire {len(fires)}'s grades disagree with the "
+                  f"plain round")
+            cache_err, _ = errors(state.div_cache, div)
+            atol, rtol = TOL["pairwise_kl_pair"]
+            check(torch.allclose(state.div_cache, div, atol=atol, rtol=rtol),
+                  f"{name}: fire {len(fires)}'s delta cache disagrees with "
+                  f"the plain divergence matrix")
+            same = same_neighbors(bus.last_graph, g, "the plain round")
+            # nothing is sent to a row outside the policy's receivers
+            recv = bus.policy.receivers(state, bus.last_graph)
+            ptargets = torch.where(recv[:, None, None], ptargets,
+                                   torch.zeros_like(ptargets))
+            d = (fed.targets - ptargets).abs()[same]
+            t_err = float(d.max()) if d.numel() else 0.0
+            check(t_err <= 1e-6, f"{name}: fire {len(fires)}'s targets "
+                                 f"disagree with the plain round")
+            fires.append({"t": t, "u": int(rows.size),
+                          "strip": [strip, n], "full_rebuild": full,
+                          "launches": launches, "ms": ms,
+                          "cache_max_abs_err": cache_err,
+                          "targets_max_abs_err": t_err,
+                          "neighbor_rows_differing": int((~same).sum()),
+                          "profile": prof})
+            # the fire and its checks leave the delivery's own time
+            fire_ms[0] = (time.perf_counter() - entered) * 1e3
+
+        bus.fire = checked_fire
+        clock = Clock()
+        for t, mask in arrivals.wakes(n, until):
+            clock.schedule(t, "wake", mask)
+        n_wakes, delivery_prof = 0, None
+        while (ev := clock.pop_due(until)) is not None:
+            if ev.kind == "wake":
+                msg = log_softmax_np(np.random.default_rng((1, n_wakes))
+                                     .normal(size=SERVER)
+                                     .astype(np.float32) * 2.0)
+                n_wakes += 1
+                payload = wire.encode("dense32",
+                                      torch.from_numpy(msg).to(dev))
+                mask = ev.payload
+                lat = arrivals.latency(ev.time, mask, n)
+                for dly in np.unique(lat[mask]):
+                    clock.schedule(ev.time + float(dly), "upload",
+                                   (mask & (lat == dly), payload, ev.time))
+                continue
+            sub, payload, produced = ev.payload
+            fire_ms[0] = 0.0
+            n_fires = len(fires)
+
+            def deliver():
+                return bus.deliver(ev.time, payload, sub,
+                                   produced_at=produced)
+            if len(deliveries) == quiet:
+                fired, delivery_prof = False, device_breakdown(
+                    f"{name}: delivery {quiet} at t={ev.time:g}, "
+                    f"{int(sub.sum())} rows", deliver)
+                check(len(fires) == n_fires, f"{name}: the profiled "
+                                             f"delivery fired")
+                ms = None
+            else:
+                fired, ms = timed(deliver)
+                ms -= fire_ms[0]
+            check(fired == (len(fires) == n_fires + 1),
+                  f"{name}: a fire went unrecorded")
+            deliveries.append({"t": ev.time, "rows": int(sub.sum()),
+                               "ms": ms, "fired": fired})
+        # the profiled delivery's wall carries the profiler's overhead
+        dms = np.array([dd["ms"] for dd in deliveries
+                        if dd["ms"] is not None])
+        us = [f["u"] for f in fires]
+        buckets = sorted({f["strip"][0] for f in fires})
+        print(f"  [{CARD}] {name}: {n_wakes} wakes, {len(deliveries)} "
+              f"deliveries ({bus.n_uploads} rows merged, median "
+              f"{np.median(dms):.3f} ms, max {dms.max():.3f} ms a delivery "
+              f"without its fire), {len(fires)} fires: u "
+              f"{min(us)}-{max(us)}, strips of {buckets} rows, fire ms "
+              f"median {np.median([f['ms'] for f in fires]):.2f} max "
+              f"{max(f['ms'] for f in fires):.2f}")
+        for f in fires[:6]:
+            print(f"    fire t={f['t']:.6g} u={f['u']} strip {f['strip']} "
+                  f"{f['ms']:.2f} ms, launches {f['launches']}, cache err "
+                  f"{f['cache_max_abs_err']:.2e}, targets err "
+                  f"{f['targets_max_abs_err']:.2e}")
+        check(len(fires) >= 3 and fires[profile_at]["profile"] is not None
+              and delivery_prof is not None,
+              f"{name}: too few fires or deliveries")
+        out[name] = {"n_wakes": n_wakes, "fires": fires,
+                     "deliveries": len(deliveries),
+                     "delivery_profile": delivery_prof,
+                     "delivery_ms_median": float(np.median(dms)),
+                     "delivery_ms_max": float(dms.max()),
+                     "rows_merged": bus.n_uploads,
+                     "launches": {kk: sum(f["launches"].get(kk, 0)
+                                          for f in fires)
+                                  for kk in ops.launch_counts()}}
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1019,6 +1295,10 @@ def int8_case(label: str, a, b, iters: int, routes=()) -> dict:
     row["plain_ms"] = cuda_ms(
         lambda: ref.int8_pairwise_kl_pair_ref(qa, sa, za, qb, sb, zb), iters)
     row["library_ms"] = cuda_ms(lambda: torch.matmul(pa, lb_t), iters)
+    # timed as the kernels are: a back-to-back loop of microsecond calls
+    # measures the host's launch rate
+    row["library_device_ms"] = device_ms(lambda: torch.matmul(pa, lb_t),
+                                         iters)
     row.update({"flops": flops, "bytes": nbytes})
     times = " ".join(f"{n}={row[f'{n}_ms']:.4f} ms (device "
                      f"{row[f'{n}_device_ms']:.4f} ms; bound "
@@ -1028,7 +1308,8 @@ def int8_case(label: str, a, b, iters: int, routes=()) -> dict:
                      for n in routes)
     print(f"  time [{CARD}] int8 {label:22s} entry={row['entry_ms']:.4f} ms "
           f"{times} plain={row['plain_ms']:.4f} ms "
-          f"library={row['library_ms']:.4f} ms")
+          f"library={row['library_ms']:.4f} ms (device "
+          f"{row['library_device_ms']:.4f} ms)")
     if "wide" in routes:
         split_a = dk.split(qa, sa, True, la)[0]
         split_b = dk.split(qb, sb, False, lb)[0]
@@ -1546,6 +1827,27 @@ IVF_PATH = ("pairwise_kl_split", "pairwise_kl_pair", "soft_ce",
 FEDMD_PATH = ("soft_ce", "neighbor_mean", "neighbor_mean_split")
 DDIST_PATH = ("soft_ce", "neighbor_gather")
 IVF_SERVER = dict(delta_graph=True, selection="ivf", uplink="int8")
+# phase 14's horizon and eval period (virtual seconds)
+ASYNC_UNTIL, ASYNC_EVAL_EVERY = 9.0, 3
+
+
+def async_run(name: str, n: int) -> tuple:
+    """(arrivals, trigger, FederationConfig settings) of the regime
+    ``name`` ("staged", "straggler" or "bursty") for n clients."""
+    from repro_torch.core import (BurstyArrivals, EveryKUploads, Quorum,
+                                  ScheduleArrivals, StagedJoin,
+                                  StragglerLatency)
+    if name == "staged":
+        # facility = family (clients round-robin over the three tiers),
+        # joining at 0, 3 and 6
+        return (ScheduleArrivals(StagedJoin([3 * (i % 3)
+                                             for i in range(n)])), None, {})
+    if name == "straggler":
+        return (StragglerLatency(fraction=0.3, delay=2.5, seed=1),
+                Quorum(frac=0.5), dict(delta_graph=True))
+    if name == "bursty":
+        return BurstyArrivals(), EveryKUploads(k=8), IVF_SERVER
+    raise KeyError(name)
 
 
 def main() -> int:
@@ -1617,6 +1919,12 @@ def main() -> int:
     print("[12] baseline federations: FedMD, D-Dist, I-SGD")
     baselines = baseline_phase(dev, inputs)
 
+    print("[14] asynchronous federations (fig. 4's regimes)")
+    async_fed = async_federation_phase(dev, inputs)
+
+    print(f"[15] asynchronous server at N={SERVER[0]}")
+    async_server = async_server_phase(dev)
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -1633,7 +1941,9 @@ def main() -> int:
     rows["int8_pairwise_kl_thin"] = {
         "ms": up["thin_device_ms"], "plain_ms": up["plain_ms"],
         "back_to_back_ms": up["thin_ms"],
-        "library_ms": up["library_ms"], "bound_ms": up["thin_bound_ms"],
+        "library_ms": up["library_device_ms"],
+        "library_back_to_back_ms": up["library_ms"],
+        "bound_ms": up["thin_bound_ms"],
         "bound_by": up["thin_bound_by"], "max_abs_err": up["thin_max_abs_err"],
         "entry_ms": up["entry_ms"]}
     # each kernel's launches come from the federation whose path it is
@@ -1646,6 +1956,10 @@ def main() -> int:
         launches[name] = ivf_fed["launches"][name]
     for name in ("neighbor_mean", "neighbor_mean_split"):
         launches[name] = baselines["fedmd"]["launches"][name]
+    # and the asynchronous path's, read around each run of phases 14-15
+    for res in [*async_fed.values(), *async_server.values()]:
+        for name in launches:
+            launches[name] += res["launches"][name]
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -1664,6 +1978,7 @@ def main() -> int:
          "delta_round": delta, "ivf_index": ivf, "ivf_federation": ivf_fed,
          "warm_fits_s": fits, "fedmd_round": fedmd_round,
          "baseline_federations": baselines,
+         "async_federations": async_fed, "async_server": async_server,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

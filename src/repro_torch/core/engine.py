@@ -1,20 +1,32 @@
-"""Config-driven synchronous federation engine (Algorithm 1 end-to-end).
+"""Config-driven federation engines (Algorithm 1 end-to-end).
 
 ``FederationEngine`` owns a ``Federation`` state bundle (cohorts, server
 state, targets), a ``ServerPolicy``, a client-availability ``Schedule``
 and a ``FederationConfig``; each round is a full-federation wake of the
-``ClientRuntime`` followed by an upload that fires the ``ServerBus``.
+``ClientRuntime`` followed by an upload that fires the ``ServerBus`` (a
+``SyncClock`` and the every-upload trigger).
+``AsyncFederationEngine.fit(until=...)`` drives the virtual-clock event
+loop instead: clients wake per an ``ArrivalProcess``, uploads land after
+their latency and merge on arrival, and the bus fires per its
+``Trigger``.
 
     engine = FederationEngine.build(ds, splits, hetero_mlp_zoo(L, C), None,
                                     sqmd(q=16, k=8),
                                     config=FederationConfig(rounds=40))
     history = engine.fit(splits)
 
+    async_engine = AsyncFederationEngine.build(
+        ds, splits, hetero_mlp_zoo(L, C), None, sqmd(q=16, k=8),
+        arrivals=StragglerLatency(fraction=0.3, delay=2.5),
+        trigger=Quorum(frac=0.5))
+    history = async_engine.fit(splits, until=40.0)
+
 Everything lives on one device, the card unless ``device="cpu"`` is
 passed. Two optional seams carry another run's draws in:
 ``init_params={family: stacked numpy params}`` and
-``batch_indices(step, cohort_idx) -> (n_c, B)``; without them the port
-draws from a ``torch.Generator`` seeded by ``seed``.
+``batch_indices(step, cohort_idx) -> (n_c, B)``, ``step`` counting inner
+local steps across wakes; without them the port draws from a
+``torch.Generator`` seeded by ``seed``.
 """
 from __future__ import annotations
 
@@ -34,9 +46,11 @@ from repro_torch.core.client import (Cohort, cohort_accuracy,
                                      cohort_accuracy_masked, cohort_pred)
 from repro_torch.core.policies import ServerPolicy, as_policy
 from repro_torch.core.protocols import Protocol
-from repro_torch.core.runtime import (BatchIndices, ClientRuntime,
-                                      ServerBus, SyncClock)
-from repro_torch.core.schedules import AlwaysOn, Schedule
+from repro_torch.core.runtime import (BatchIndices, ClientRuntime, Clock,
+                                      ServerBus, SyncClock, Trigger,
+                                      as_trigger)
+from repro_torch.core.schedules import (ArrivalProcess, Schedule,
+                                        as_arrivals, as_schedule)
 from repro_torch.core.server import ServerState, init_server
 from repro_torch.data.partition import ClientSplit, pack_cohort
 from repro_torch.data.synthetic import FederatedDataset
@@ -46,19 +60,26 @@ from repro_torch.optim import Optimizer, sgd
 
 @dataclasses.dataclass
 class History:
-    """Eval-time trajectory: per eval the round, virtual time, accuracies,
-    graph stats, server rounds fired, repository staleness and the
-    cumulative wire bytes."""
+    """Eval-time trajectory: per eval the round (sync) or nearest virtual
+    tick (async), the virtual time, accuracies, graph stats, server rounds
+    fired, repository staleness and the cumulative wire bytes."""
     rounds: List[int] = dataclasses.field(default_factory=list)
     mean_acc: List[float] = dataclasses.field(default_factory=list)
     per_client_acc: List[np.ndarray] = dataclasses.field(default_factory=list)
     val_acc: List[float] = dataclasses.field(default_factory=list)
     graph_stats: List[dict] = dataclasses.field(default_factory=list)
+    mean_loss: List[float] = dataclasses.field(default_factory=list)
     times: List[float] = dataclasses.field(default_factory=list)
     server_rounds: List[int] = dataclasses.field(default_factory=list)
     staleness: List[dict] = dataclasses.field(default_factory=list)
     bytes_up: List[float] = dataclasses.field(default_factory=list)
     bytes_down: List[float] = dataclasses.field(default_factory=list)
+
+    def final_metrics(self, mask: Optional[np.ndarray] = None) -> dict:
+        acc = self.per_client_acc[-1]
+        if mask is not None:
+            acc = acc[mask]
+        return {"acc": float(np.mean(acc)), "std": float(np.std(acc))}
 
     @property
     def best_round_idx(self) -> int:
@@ -70,6 +91,9 @@ class History:
     @property
     def selected_acc(self) -> float:
         return self.mean_acc[self.best_round_idx]
+
+    def selected_per_client(self) -> np.ndarray:
+        return self.per_client_acc[self.best_round_idx]
 
 
 @dataclasses.dataclass
@@ -97,6 +121,7 @@ class Federation:
 class FederationConfig:
     rounds: int = 40
     batch_size: int = 32
+    local_steps: int = 1            # local SGD steps per wake
     eval_every: int = 10
     delta_graph: bool = False       # incremental O(u·N) server graph
     # updates; off by default — the full rebuild is the exact oracle
@@ -109,7 +134,7 @@ class FederationConfig:
     def __post_init__(self):
         if self.rounds < 0:
             raise ValueError(f"rounds must be >= 0, got {self.rounds}")
-        for name in ("batch_size", "eval_every"):
+        for name in ("batch_size", "local_steps", "eval_every"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
@@ -191,26 +216,55 @@ def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
     return fed, pol
 
 
+def _record_metrics(eng, splits: Sequence[ClientSplit], rnd: int, t: float,
+                    mask: np.ndarray) -> Dict[str, Any]:
+    """Append one eval point to ``eng.history`` (shared by both engines)."""
+    acc = eng.evaluate(splits)
+    vacc = eng.evaluate(splits, which="val")
+    h = eng.history
+    h.rounds.append(rnd)
+    h.times.append(float(t))
+    h.per_client_acc.append(acc)
+    h.mean_acc.append(float(acc[mask].mean()))
+    h.val_acc.append(float(vacc[mask].mean()))
+    h.server_rounds.append(eng.bus.n_triggers)
+    stale = eng.bus.staleness(t)
+    h.staleness.append(stale)
+    h.bytes_up.append(float(eng.bus.bytes_up.sum()))
+    h.bytes_down.append(float(eng.bus.bytes_down.sum()))
+    metrics: Dict[str, Any] = {
+        "round": rnd, "time": float(t), "acc": h.mean_acc[-1],
+        "val_acc": h.val_acc[-1], "per_client_acc": acc, "joined": mask,
+        "server_rounds": eng.bus.n_triggers, "staleness": stale,
+        "bytes_up": h.bytes_up[-1], "bytes_down": h.bytes_down[-1],
+    }
+    if eng.last_graph is not None:
+        h.graph_stats.append(graph_mod.graph_stats(eng.last_graph))
+        metrics["graph"] = h.graph_stats[-1]
+    return metrics
+
+
 class FederationEngine:
     """The synchronous federation driver: ``SyncClock``, every-upload
     trigger, one wake per round for the schedule's availability mask."""
 
     def __init__(self, federation: Federation, policy: ServerPolicy,
-                 schedule: Schedule,
+                 schedule: Union[None, str, Schedule] = None,
                  config: Optional[FederationConfig] = None,
                  callbacks: Sequence[RoundCallback] = (),
                  batch_indices: Optional[BatchIndices] = None):
         self.fed = federation
         self.policy = policy
-        self.schedule = schedule
+        self.schedule = as_schedule(schedule)
         self.config = config or FederationConfig()
         self.callbacks: List[RoundCallback] = list(callbacks)
-        self.clock = SyncClock()
+        self.publish_hooks: List[Callable[[float], None]] = []
+        self.clock: Clock = SyncClock()
         federation.uplink = self.config.uplink
         federation.downlink = self.config.downlink
         self.clients = ClientRuntime(federation, policy, self.config,
                                      batch_indices=batch_indices)
-        self.bus = ServerBus(federation, policy,
+        self.bus = ServerBus(federation, policy, trigger="every-upload",
                              delta=self.config.delta_graph,
                              selection=self.config.selection)
 
@@ -230,30 +284,37 @@ class FederationEngine:
     def last_graph(self) -> Optional[graph_mod.CollaborationGraph]:
         return self.bus.last_graph
 
+    def _publish(self, t: float) -> None:
+        """Call the publish hooks (``hook(t)``) after params or targets
+        moved: every round (sync), every wake and server fire (async)."""
+        for hook in self.publish_hooks:
+            hook(float(t))
+
     @classmethod
     def build(cls, ds: FederatedDataset, splits: Sequence[ClientSplit],
               families: Mapping[str, MLPConfig],
               assignment: Optional[Sequence[str]],
               policy: Union[str, Protocol, ServerPolicy],
               *, config: Optional[FederationConfig] = None,
-              schedule: Optional[Schedule] = None, seed: int = 0,
+              schedule: Union[None, str, Schedule] = None, seed: int = 0,
               callbacks: Sequence[RoundCallback] = (),
               device: Device = None,
               init_params: Optional[Mapping[str, Mapping]] = None,
               batch_indices: Optional[BatchIndices] = None,
               static_weights=None) -> "FederationEngine":
-        """``schedule=None`` is always-on; ``device=None`` is the card,
-        and raises without one. ``static_weights`` is D-Dist's dense
-        (N,N) graph (numpy or tensor); without it D-Dist draws one."""
+        """``schedule`` is a Schedule, a registered name or None (always
+        on); ``device=None`` is the card, and raises without one.
+        ``static_weights`` is D-Dist's dense (N,N) graph (numpy or
+        tensor); without it D-Dist draws one."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
             seed=seed, init_params=init_params,
             static_weights=static_weights)
-        return cls(fed, pol, schedule or AlwaysOn(), config=config,
+        return cls(fed, pol, schedule, config=config,
                    callbacks=callbacks, batch_indices=batch_indices)
 
     def run_round(self, rnd: int) -> None:
-        """One round, in place: a local step for the available clients
+        """One round, in place: a wake of the available clients
         (distilling toward the targets from round 1 on, if the policy uses
         the reference set), then, every ``interval`` rounds, their upload,
         which fires the server; other rounds only mark them active."""
@@ -267,6 +328,7 @@ class FederationEngine:
             self.bus.deliver(t, self.clients.collect_messengers(avail), avail)
         else:
             self.bus.observe(t, avail)
+        self._publish(t)
 
     def evaluate(self, splits: Sequence[ClientSplit],
                  which: str = "test") -> np.ndarray:
@@ -277,29 +339,7 @@ class FederationEngine:
         mask = np.asarray(self.schedule.joined(rnd, self.n_clients), bool)
         if not mask.any():
             mask = np.ones_like(mask)
-        acc = self.evaluate(splits)
-        vacc = self.evaluate(splits, which="val")
-        h = self.history
-        h.rounds.append(rnd)
-        h.times.append(float(rnd))
-        h.per_client_acc.append(acc)
-        h.mean_acc.append(float(acc[mask].mean()))
-        h.val_acc.append(float(vacc[mask].mean()))
-        h.server_rounds.append(self.bus.n_triggers)
-        stale = self.bus.staleness(float(rnd))
-        h.staleness.append(stale)
-        h.bytes_up.append(float(self.bus.bytes_up.sum()))
-        h.bytes_down.append(float(self.bus.bytes_down.sum()))
-        metrics: Dict[str, Any] = {
-            "round": rnd, "time": float(rnd), "acc": h.mean_acc[-1],
-            "val_acc": h.val_acc[-1], "per_client_acc": acc, "joined": mask,
-            "server_rounds": self.bus.n_triggers, "staleness": stale,
-            "bytes_up": h.bytes_up[-1], "bytes_down": h.bytes_down[-1],
-        }
-        if self.last_graph is not None:
-            h.graph_stats.append(graph_mod.graph_stats(self.last_graph))
-            metrics["graph"] = h.graph_stats[-1]
-        return metrics
+        return _record_metrics(self, splits, rnd, float(rnd), mask)
 
     def fit(self, splits: Sequence[ClientSplit]) -> History:
         cfg = self.config
@@ -312,6 +352,173 @@ class FederationEngine:
                 if cfg.verbose:
                     print(f"  round {rnd:4d}  "
                           f"acc={self.history.mean_acc[-1]:.4f}")
+        return self.history
+
+
+class AsyncFederationEngine:
+    """Event-driven federation driver on a virtual clock.
+
+    Clients wake per an ``ArrivalProcess``; each wake's uploads travel
+    with per-client latency (one ``upload`` event per distinct latency)
+    and merge into the repository on arrival (stale rows persist until
+    overwritten); the ``ServerBus`` fires policy rounds per its
+    ``Trigger``. ``fit(until=...)`` drains every event up to a virtual
+    horizon and can be called again with a larger one to continue the
+    same run; uploads in flight past the horizon stay queued. Evals run
+    every ``config.eval_every`` virtual seconds and at the horizon.
+
+    ``handlers`` maps further event kinds on the shared clock to their
+    handler; ``publish_hooks`` are called after every wake and every
+    server fire."""
+
+    def __init__(self, federation: Federation, policy: ServerPolicy,
+                 arrivals: Union[None, str, Schedule, ArrivalProcess] = None,
+                 trigger: Union[None, str, Trigger] = None,
+                 config: Optional[FederationConfig] = None,
+                 callbacks: Sequence[RoundCallback] = (),
+                 batch_indices: Optional[BatchIndices] = None):
+        if policy.uses_reference and policy.interval != 1:
+            raise ValueError(
+                f"Protocol.interval={policy.interval} is a "
+                f"round-synchronous concept; under the event clock express "
+                f"server cadence with a Trigger instead (every-k, "
+                f"interval, quorum)")
+        self.fed = federation
+        self.policy = policy
+        self.arrivals = as_arrivals(arrivals)
+        self.config = config or FederationConfig()
+        self.callbacks: List[RoundCallback] = list(callbacks)
+        self.publish_hooks: List[Callable[[float], None]] = []
+        self.handlers: Dict[str, Callable[[Any], None]] = {}
+        self.clock = Clock()
+        federation.uplink = self.config.uplink
+        federation.downlink = self.config.downlink
+        self.clients = ClientRuntime(federation, policy, self.config,
+                                     batch_indices=batch_indices)
+        self.bus = ServerBus(federation, policy, trigger=as_trigger(trigger),
+                             delta=self.config.delta_graph,
+                             selection=self.config.selection)
+        self._seeded_until = -1.0
+
+    server = FederationEngine.server
+    history = FederationEngine.history
+    n_clients = FederationEngine.n_clients
+    last_graph = FederationEngine.last_graph
+    evaluate = FederationEngine.evaluate
+    _publish = FederationEngine._publish
+
+    @classmethod
+    def build(cls, ds: FederatedDataset, splits: Sequence[ClientSplit],
+              families: Mapping[str, MLPConfig],
+              assignment: Optional[Sequence[str]],
+              policy: Union[str, Protocol, ServerPolicy],
+              *, arrivals: Union[None, str, Schedule, ArrivalProcess] = None,
+              trigger: Union[None, str, Trigger] = None,
+              config: Optional[FederationConfig] = None, seed: int = 0,
+              callbacks: Sequence[RoundCallback] = (),
+              device: Device = None,
+              init_params: Optional[Mapping[str, Mapping]] = None,
+              batch_indices: Optional[BatchIndices] = None,
+              static_weights=None) -> "AsyncFederationEngine":
+        """``arrivals`` is an ArrivalProcess, a Schedule (shimmed), a
+        registered name or None (always on, unit cadence); ``trigger`` a
+        Trigger, a name or None (every upload). ``device=None`` is the
+        card, and raises without one."""
+        fed, pol = _init_federation(
+            ds, splits, families, assignment, policy, device=device,
+            seed=seed, init_params=init_params,
+            static_weights=static_weights)
+        return cls(fed, pol, arrivals=arrivals, trigger=trigger,
+                   config=config, callbacks=callbacks,
+                   batch_indices=batch_indices)
+
+    def _seed_events(self, until: float) -> None:
+        lo = self._seeded_until
+        n = self.n_clients
+        for t, mask in self.arrivals.wakes(n, until):
+            if t > lo:
+                self.clock.schedule(t, "wake", np.asarray(mask, bool))
+        period = self.bus.trigger.wall_period()
+        if period is not None:
+            k = max(0, int(np.floor(lo / period)) + 1)
+            while k * period <= until + 1e-9:
+                if k * period > lo:
+                    self.clock.schedule(k * period, "server-tick")
+                k += 1
+        every = float(self.config.eval_every)
+        k = max(0, int(np.floor(lo / every)) + 1)
+        on_grid = False
+        while k * every <= until + 1e-9:
+            if k * every > lo:
+                self.clock.schedule(k * every, "eval")
+                on_grid = on_grid or abs(k * every - until) < 1e-9
+            k += 1
+        if not on_grid and until > lo:
+            self.clock.schedule(until, "eval")   # terminal eval
+        # never regress the watermark: a later fit() with a smaller
+        # horizon must not re-seed (and replay) events already run
+        self._seeded_until = max(lo, until)
+
+    def _dispatch(self, ev, splits: Sequence[ClientSplit]) -> None:
+        t = ev.time
+        if ev.kind == "wake":
+            # an all-False wake still runs the (fully gated) local round
+            # and a zero-row upload, so the draws and the server-round
+            # cadence match the sync engine round for round
+            mask = np.asarray(ev.payload, bool)
+            use_ref = (self.policy.uses_reference
+                       and self.bus.n_triggers > 0)
+            self.clients.local_round(mask, use_ref)
+            if self.policy.uses_reference:
+                msg = self.clients.collect_messengers(mask)
+                lat = np.asarray(
+                    self.arrivals.latency(t, mask, self.n_clients), float)
+                for d in (np.unique(lat[mask]) if mask.any() else [0.0]):
+                    sub = mask & (lat == d) if mask.any() else mask
+                    self.clock.schedule(t + float(d), "upload",
+                                        (sub, msg, t))
+            else:
+                self.bus.observe(t, mask)
+            self._publish(t)
+        elif ev.kind == "upload":
+            sub, msg, produced_at = ev.payload
+            if self.bus.deliver(t, msg, sub, produced_at=produced_at):
+                self._publish(t)
+        elif ev.kind == "server-tick":
+            if self.bus.tick(t):
+                self._publish(t)
+        elif ev.kind == "eval":
+            self._record(splits, t)
+        else:
+            handler = self.handlers.get(ev.kind)
+            if handler is None:
+                raise ValueError(f"no handler for event kind {ev.kind!r} "
+                                 f"(registered: {sorted(self.handlers)})")
+            handler(ev)
+
+    def _record(self, splits: Sequence[ClientSplit], t: float) -> None:
+        rnd = int(round(t))
+        joined = self.arrivals.joined(t, self.n_clients)
+        mask = (np.asarray(joined, bool) if joined is not None
+                else self.clients.ever_woken.copy())
+        if not mask.any():
+            mask = np.ones(self.n_clients, bool)
+        metrics = _record_metrics(self, splits, rnd, t, mask)
+        for cb in self.callbacks:
+            cb(self, rnd, metrics)
+        if self.config.verbose:
+            print(f"  t={t:7.2f}  acc={self.history.mean_acc[-1]:.4f}  "
+                  f"server_rounds={self.bus.n_triggers}")
+
+    def fit(self, splits: Sequence[ClientSplit],
+            until: Optional[float] = None) -> History:
+        """Drain every event with virtual time <= ``until`` (default: the
+        config's round budget, the sync engine's horizon)."""
+        until = float(self.config.rounds - 1) if until is None \
+            else float(until)
+        self._seed_events(until)
+        while (ev := self.clock.pop_due(until)) is not None:
+            self._dispatch(ev, splits)
         return self.history
 
 

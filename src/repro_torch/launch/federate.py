@@ -1,12 +1,20 @@
-"""Run the port's synchronous federation from the shell, under SQMD or a
-baseline (``--policy fedmd|ddist|isgd``).
+"""Run the port's federation from the shell, under SQMD or a baseline
+(``--policy fedmd|ddist|isgd``), on the round-synchronous clock or the
+event clock.
 
   python -m repro_torch.launch.federate --device cuda --rounds 40
   python -m repro_torch.launch.federate --policy fedmd --interval 2
-  python -m repro_torch.launch.federate --schedule staged-join \
-      --dataset sc_like --device cpu
+  python -m repro_torch.launch.federate --schedule dropout --dropout-p 0.3 \
+      --local-steps 2 --dataset sc_like
   python -m repro_torch.launch.federate --delta --selection ivf \
       --uplink int8 --device cuda
+
+Event clock (virtual-time async runtime):
+
+  python -m repro_torch.launch.federate --clock event \
+      --arrivals straggler-latency --latency 2.5 --trigger quorum
+  python -m repro_torch.launch.federate --clock event \
+      --arrivals bursty --trigger every-k --trigger-k 10 --until 60
 
 (with ``src`` on ``PYTHONPATH``). Prints per-eval accuracy, then a JSON
 summary. ``--device`` defaults to ``cuda`` and fails without a card.
@@ -16,13 +24,59 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional, Union
 
-from repro_torch.core import (FederationConfig, FederationEngine, Protocol,
-                              StagedJoin, as_codec, precision_recall,
-                              registered_codecs)
+from repro_torch.core import (ArrivalProcess, AsyncFederationEngine,
+                              BurstyArrivals, EveryKUploads,
+                              FederationConfig, FederationEngine,
+                              HeterogeneousCadence, Protocol, Quorum,
+                              RandomDropout, Schedule, ScheduleArrivals,
+                              StagedJoin, Straggler, StragglerLatency,
+                              Trigger, WallInterval, as_codec, get_arrivals,
+                              precision_recall, registered_arrivals,
+                              registered_codecs, registered_schedules,
+                              registered_triggers)
 from repro_torch.core.policies import registered_policies
 from repro_torch.data import DATASETS, make_splits
 from repro_torch.models import hetero_mlp_zoo
+
+
+def make_schedule(args, n_clients: int, rounds: int) -> Optional[Schedule]:
+    if args.schedule == "staged-join":
+        per = max(1, rounds // args.stages)
+        return StagedJoin([(i % args.stages) * per
+                           for i in range(n_clients)])
+    if args.schedule == "dropout":
+        return RandomDropout(p=args.dropout_p, seed=args.seed)
+    if args.schedule == "straggler":
+        return Straggler(fraction=args.straggler_fraction,
+                         period=args.straggler_period, seed=args.seed)
+    return None  # always-on
+
+
+def make_arrivals(args, n_clients: int, rounds: int) -> ArrivalProcess:
+    if args.arrivals == "schedule":
+        return ScheduleArrivals(make_schedule(args, n_clients, rounds))
+    if args.arrivals == "straggler-latency":
+        return StragglerLatency(fraction=args.straggler_fraction,
+                                delay=args.latency, seed=args.seed)
+    if args.arrivals == "cadence":
+        return HeterogeneousCadence(fast=args.cadence_fast,
+                                    slow=args.cadence_slow, seed=args.seed)
+    if args.arrivals == "bursty":
+        return BurstyArrivals(burst_every=args.burst_every,
+                              jitter=args.latency, seed=args.seed)
+    return get_arrivals(args.arrivals)()
+
+
+def make_trigger(args) -> Union[str, Trigger]:
+    if args.trigger == "every-k":
+        return EveryKUploads(k=args.trigger_k)
+    if args.trigger == "interval":
+        return WallInterval(period=args.trigger_period)
+    if args.trigger == "quorum":
+        return Quorum(frac=args.quorum_frac)
+    return args.trigger
 
 
 def main(argv=None) -> dict:
@@ -32,17 +86,42 @@ def main(argv=None) -> dict:
     ap.add_argument("--dataset", choices=tuple(DATASETS), default="pad_like")
     ap.add_argument("--rounds", type=int, default=40)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--local-steps", type=int, default=1)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--q", type=int, default=16)
     ap.add_argument("--k", type=int, default=8)
     ap.add_argument("--rho", type=float, default=0.8)
     ap.add_argument("--interval", type=int, default=1,
                     help="communication interval I: upload and fire the "
-                         "server every I rounds")
-    ap.add_argument("--schedule", choices=("always-on", "staged-join"),
+                         "server every I rounds (sync clock only)")
+    ap.add_argument("--schedule", choices=registered_schedules(),
                     default="always-on")
     ap.add_argument("--stages", type=int, default=3,
                     help="staged-join: number of equal join waves")
+    ap.add_argument("--dropout-p", type=float, default=0.2)
+    ap.add_argument("--straggler-fraction", type=float, default=0.3)
+    ap.add_argument("--straggler-period", type=int, default=3)
+    # --- event clock (async virtual-time runtime) ---
+    ap.add_argument("--clock", choices=("sync", "event"), default="sync",
+                    help="sync: round loop; event: virtual-clock runtime")
+    ap.add_argument("--until", type=float,
+                    help="event clock: virtual-time horizon "
+                         "(default rounds-1)")
+    ap.add_argument("--arrivals", choices=registered_arrivals(),
+                    default="schedule",
+                    help="event clock: client arrival/latency process "
+                         "('schedule' shims --schedule)")
+    ap.add_argument("--latency", type=float, default=2.0,
+                    help="straggler-latency upload delay / bursty jitter")
+    ap.add_argument("--cadence-fast", type=float, default=1.0)
+    ap.add_argument("--cadence-slow", type=float, default=3.0)
+    ap.add_argument("--burst-every", type=float, default=4.0)
+    ap.add_argument("--trigger", choices=registered_triggers(),
+                    default="every-upload",
+                    help="event clock: when the server fires policy rounds")
+    ap.add_argument("--trigger-k", type=int, default=8)
+    ap.add_argument("--trigger-period", type=float, default=1.0)
+    ap.add_argument("--quorum-frac", type=float, default=0.5)
     ap.add_argument("--samples-per-client", type=int, default=60)
     ap.add_argument("--ref-size", type=int, default=120)
     ap.add_argument("--label-noise", type=float, default=0.3)
@@ -67,6 +146,8 @@ def main(argv=None) -> dict:
         ap.error("--rounds must be >= 1")
     if args.interval < 1:
         ap.error("--interval must be >= 1")
+    if args.local_steps < 1:
+        ap.error("--local-steps must be >= 1")
     if args.selection == "ivf" and not args.delta:
         ap.error("--selection ivf requires --delta (the approximate index "
                  "only exists on the incremental graph path)")
@@ -79,42 +160,58 @@ def main(argv=None) -> dict:
     ds = DATASETS[args.dataset](samples_per_client=args.samples_per_client,
                                 ref_size=args.ref_size)
     splits = make_splits(ds, seed=args.seed, label_noise=args.label_noise)
-    schedule = None
-    if args.schedule == "staged-join":
-        per = max(1, args.rounds // args.stages)
-        schedule = StagedJoin([(i % args.stages) * per
-                               for i in range(ds.n_clients)])
+    zoo = hetero_mlp_zoo(ds.feature_len, ds.n_classes)
     protocol = Protocol(args.policy, rho=args.rho, q=args.q, k=args.k,
                         interval=args.interval)
     config = FederationConfig(rounds=args.rounds, batch_size=args.batch,
+                              local_steps=args.local_steps,
                               eval_every=args.eval_every,
                               delta_graph=args.delta,
                               selection=args.selection, uplink=args.uplink,
                               downlink=args.downlink, verbose=True)
-    print(f"policy={args.policy} schedule={schedule or 'always-on'} "
-          f"dataset={args.dataset} clients={ds.n_clients} "
-          f"device={args.device} config={config}")
     t0 = time.time()
-    engine = FederationEngine.build(
-        ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
-        protocol, config=config, schedule=schedule, seed=args.seed + 1,
-        device=args.device)
-    hist = engine.fit(splits)
+    if args.clock == "event":
+        arrivals = make_arrivals(args, ds.n_clients, args.rounds)
+        trigger = make_trigger(args)
+        print(f"policy={args.policy} clock=event arrivals={arrivals!r} "
+              f"trigger={trigger!r} dataset={args.dataset} "
+              f"clients={ds.n_clients} device={args.device} "
+              f"config={config}")
+        engine = AsyncFederationEngine.build(
+            ds, splits, zoo, None, protocol, arrivals=arrivals,
+            trigger=trigger, config=config, seed=args.seed + 1,
+            device=args.device)
+        hist = engine.fit(splits, until=args.until)
+    else:
+        schedule = make_schedule(args, ds.n_clients, args.rounds)
+        print(f"policy={args.policy} schedule={schedule or 'always-on'} "
+              f"dataset={args.dataset} clients={ds.n_clients} "
+              f"device={args.device} config={config}")
+        engine = FederationEngine.build(
+            ds, splits, zoo, None, protocol, config=config,
+            schedule=schedule, seed=args.seed + 1, device=args.device)
+        hist = engine.fit(splits)
     prec, rec = precision_recall(engine.fed, splits, ds.n_classes)
     summary = {
         "policy": args.policy, "interval": args.interval,
-        "dataset": args.dataset,
-        "schedule": args.schedule, "rounds": args.rounds,
+        "dataset": args.dataset, "clock": args.clock,
+        "rounds": args.rounds, "local_steps": args.local_steps,
         "delta": args.delta, "selection": args.selection,
         "uplink": args.uplink, "downlink": args.downlink,
         "device": str(engine.fed.device),
         "final_acc": hist.mean_acc[-1], "selected_acc": hist.selected_acc,
         "macro_precision": prec, "macro_recall": rec,
+        "virtual_time": hist.times[-1],
         "server_rounds": hist.server_rounds[-1],
         "staleness": hist.staleness[-1],
         "bytes_up": hist.bytes_up[-1], "bytes_down": hist.bytes_down[-1],
         "wall_s": round(time.time() - t0, 1),
     }
+    if args.clock == "event":
+        summary["arrivals"] = repr(engine.arrivals)
+        summary["trigger"] = repr(engine.bus.trigger)
+    else:
+        summary["schedule"] = args.schedule
     if hist.graph_stats:
         summary["graph"] = hist.graph_stats[-1]
     print(json.dumps(summary, indent=2))
