@@ -1,47 +1,59 @@
 """Client-side state and the stacked cohort step (Algorithm 1 line 12).
 
-Clients of one architecture form a *cohort*: one ``CohortMLP`` whose
-params stack the clients on a leading axis. A step runs one forward for
-the whole cohort and one backward of the summed per-client losses —
-clients share no parameter, so each gets exactly its own gradient (the
-counterpart of the reference's ``vmap(value_and_grad)``). Params are
-updated in place.
+Clients of one architecture form a *cohort*: one module (a ``CohortMLP``
+or a zoo family's ``StackedCohort``) whose params stack the clients on a
+leading axis, trained by the family's own optimizer. A step runs one
+forward for the whole cohort and one backward of the summed per-client
+losses — clients share no parameter and no norm or attention spans the
+client axis, so each gets exactly its own gradient (the counterpart of
+the reference's ``vmap(value_and_grad)``). Params are updated in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core import wire
 from repro_torch.core.distill import sqmd_loss
 from repro_torch.core.messenger import cohort_messengers
-from repro_torch.models.mlp import CohortMLP
-from repro_torch.optim import Optimizer, SGDState
+from repro_torch.optim import Optimizer
 
 
 @dataclasses.dataclass
 class Cohort:
     """All clients sharing one model family."""
     family_name: str
-    model: CohortMLP                     # stacked (n_c, ...) params
-    opt_state: SGDState                  # stacked, per-client step
+    model: nn.Module                     # stacked (n_c, ...) params
+    opt_state: Any                       # stacked, per-client step
     client_ids: np.ndarray               # (n_c,) global client indices
     data: Dict[str, torch.Tensor]        # {x (n_c,M,L), y (n_c,M)}
+    optimizer: Optimizer                 # the family's optimizer
 
 
 def _rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (like.dim() - 1))
 
 
-def cohort_step(model: CohortMLP, optimizer: Optimizer,
-                opt_state: SGDState, batch_x: torch.Tensor,
+def _gate(on: torch.Tensor, old, new):
+    """``new`` on the rows of ``on``, ``old`` elsewhere, for a tensor, a
+    list of tensors, or None."""
+    if new is None:
+        return None
+    if isinstance(new, torch.Tensor):
+        return torch.where(_rows(on, new), new, old)
+    return [_gate(on, a, b) for a, b in zip(old, new)]
+
+
+def cohort_step(model: nn.Module, optimizer: Optimizer,
+                opt_state, batch_x: torch.Tensor,
                 batch_y: torch.Tensor, ref_x: torch.Tensor,
                 targets: torch.Tensor, trainable: torch.Tensor,
                 rho: float, use_ref: bool):
-    """One SGD step for a whole cohort, in place on ``model``.
+    """One optimizer step for a whole cohort, in place on ``model``.
 
     batch_x (n_c,B,L), batch_y (n_c,B), targets (n_c,R,C) per-client
     distill targets, trainable (n_c,) bool. Rows outside ``trainable``
@@ -52,18 +64,20 @@ def cohort_step(model: CohortMLP, optimizer: Optimizer,
         loss = sqmd_loss(model, batch_x, batch_y, ref_x, targets, rho,
                          use_ref)
         grads = torch.autograd.grad(loss.sum(), params)
-    updates, new_state = optimizer.update(grads, opt_state)
-    on = trainable.to(torch.bool)
     with torch.no_grad():
+        updates, new_state = optimizer.update(grads, opt_state,
+                                              [p.detach() for p in params])
+        on = trainable.to(torch.bool)
         for p, u in zip(params, updates):
             p.copy_(torch.where(_rows(on, p), p + u.to(p.dtype), p))
-    step = torch.where(on, new_state.step, opt_state.step)
-    mom = [torch.where(_rows(on, b), b, a)
-           for a, b in zip(opt_state.momentum, new_state.momentum)]
-    return SGDState(step, mom), loss.detach()
+    # every leaf of the state is gated, the step counter included: a
+    # woken client resumes with its own Adam bias correction
+    state = type(new_state)(*(_gate(on, a, b)
+                              for a, b in zip(opt_state, new_state)))
+    return state, loss.detach()
 
 
-def cohort_messenger_upload(model: CohortMLP, ref_x: torch.Tensor,
+def cohort_messenger_upload(model: nn.Module, ref_x: torch.Tensor,
                             codec: Union[None, str, wire.Codec] = None):
     """(n_c, R, C) log-prob messengers, wire-encoded when ``codec`` is
     given."""
@@ -71,7 +85,7 @@ def cohort_messenger_upload(model: CohortMLP, ref_x: torch.Tensor,
 
 
 @torch.no_grad()
-def cohort_accuracy(model: CohortMLP, xs: torch.Tensor,
+def cohort_accuracy(model: nn.Module, xs: torch.Tensor,
                     ys: torch.Tensor) -> torch.Tensor:
     """Per-client accuracy on stacked eval shards (n_c, M, L)/(n_c, M)."""
     pred = torch.argmax(model(xs), dim=-1)
@@ -79,7 +93,7 @@ def cohort_accuracy(model: CohortMLP, xs: torch.Tensor,
 
 
 @torch.no_grad()
-def cohort_accuracy_masked(model: CohortMLP, xs: torch.Tensor,
+def cohort_accuracy_masked(model: nn.Module, xs: torch.Tensor,
                            ys: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """Per-client accuracy over unequal shard lengths: shards padded to
@@ -89,5 +103,5 @@ def cohort_accuracy_masked(model: CohortMLP, xs: torch.Tensor,
 
 
 @torch.no_grad()
-def cohort_pred(model: CohortMLP, xs: torch.Tensor) -> torch.Tensor:
+def cohort_pred(model: nn.Module, xs: torch.Tensor) -> torch.Tensor:
     return torch.argmax(model(xs), dim=-1)

@@ -15,6 +15,11 @@ their latency and merge on arrival, and the bus fires per its
                                     config=FederationConfig(rounds=40))
     history = engine.fit(splits)
 
+    mixed = FederationEngine.build(
+        ds, splits, build_zoo("mlp-s,resnet,transformer,ssm,rglru", L, C),
+        "mlp-s:0.4,resnet:0.3,transformer:0.1,ssm:0.1,rglru:0.1",
+        sqmd(q=16, k=8))
+
     async_engine = AsyncFederationEngine.build(
         ds, splits, hetero_mlp_zoo(L, C), None, sqmd(q=16, k=8),
         arrivals=StragglerLatency(fraction=0.3, delay=2.5),
@@ -38,8 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import Device, resolve_device
-from repro_torch.convert import (cohort_params_from_numpy,
-                                 static_weights_from_numpy)
+from repro_torch.convert import load_cohort_params, static_weights_from_numpy
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import wire
 from repro_torch.core.client import (Cohort, cohort_accuracy,
@@ -54,8 +58,14 @@ from repro_torch.core.schedules import (ArrivalProcess, Schedule,
 from repro_torch.core.server import ServerState, init_server
 from repro_torch.data.partition import ClientSplit, pack_cohort
 from repro_torch.data.synthetic import FederatedDataset
-from repro_torch.models.mlp import CohortMLP, MLPConfig
+from repro_torch.models.mlp import MLPConfig, mlp_family
+from repro_torch.models.zoo import parse_assignment
 from repro_torch.optim import Optimizer, sgd
+
+# {family: cohort builder} (a ``Zoo`` or any mapping of builders), or the
+# ``hetero_mlp_zoo`` dict of MLPConfig
+Families = Mapping[str, Union[MLPConfig, Callable[..., Any]]]
+Assignment = Union[None, str, Sequence[str]]
 
 
 @dataclasses.dataclass
@@ -103,7 +113,6 @@ class Federation:
     server: ServerState
     ref_x: torch.Tensor
     ref_y: torch.Tensor
-    optimizer: Optimizer
     n_clients: int
     generator: torch.Generator
     targets: Optional[torch.Tensor] = None          # (N,R,C)
@@ -156,49 +165,51 @@ RoundCallback = Callable[["FederationEngine", int, Dict[str, Any]], None]
 
 
 def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
-                     families: Mapping[str, MLPConfig],
-                     assignment: Optional[Sequence[str]],
+                     families: Families, assignment: Assignment,
                      policy: Union[str, Protocol, ServerPolicy],
                      *, device: Device, seed: int,
                      init_params: Optional[Mapping[str, Mapping]],
-                     static_weights=None
+                     static_weights=None,
+                     optimizer: Optional[Optimizer] = None
                      ) -> Tuple[Federation, ServerPolicy]:
-    """families: {name: MLPConfig}; assignment[n] = family of client n
-    (None: round-robin over the families). Every client trains with SGD,
-    lr 0.05, momentum 0.9 (the reference's default). ``static_weights``
-    (numpy or tensor, dense (N,N)) is D-Dist's graph; a policy with
-    one-time state that got none draws it in ``setup`` from the
-    federation's generator, after the cohorts' draws."""
+    """families: {name: cohort builder} or {name: MLPConfig}; assignment
+    is a per-client list of family names or a spec string (``"fam:w,..."``
+    weighted shares, ``"fam,fam"`` round-robin; None round-robins over
+    the families), read by ``parse_assignment``. Each cohort trains with
+    ``optimizer`` if given, else its family's default (``zoo.optimizers``
+    on a ``Zoo``), else SGD at lr 0.05 with momentum 0.9.
+    ``init_params={family: stacked numpy params}`` in the reference's
+    layout replaces a cohort's draws. ``static_weights`` (numpy or tensor,
+    dense (N,N)) is D-Dist's graph; a policy with one-time state that got
+    none draws it in ``setup`` from the federation's generator, after the
+    cohorts' draws."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    opt = sgd(0.05, momentum=0.9)
+    default_opt = optimizer or sgd(0.05, momentum=0.9)
+    # an explicit optimizer overrides every family's default
+    fam_opts: Mapping[str, Optimizer] = {} if optimizer is not None else (
+        getattr(families, "optimizers", None) or {})
     n = ds.n_clients
-    names = list(families)
-    if assignment is None:
-        assignment = [names[i % len(names)] for i in range(n)]
-    if len(assignment) != n:
-        raise ValueError(f"assignment has {len(assignment)} entries for "
-                         f"{n} clients")
-    unknown = sorted(set(assignment) - set(names))
-    if unknown:
-        raise ValueError(f"assignment names families not in the zoo: "
-                         f"{unknown}; zoo has {names}")
+    assignment = parse_assignment(assignment, list(families), n)
     cohorts = []
-    for fam, cfg in families.items():
+    for fam, family in families.items():
         ids = [i for i in range(n) if assignment[i] == fam]
         if not ids:
             continue
-        model = CohortMLP(cfg, len(ids), device=dev, generator=gen)
+        build = mlp_family(family) if isinstance(family, MLPConfig) \
+            else family
+        model = build(len(ids), device=dev, generator=gen)
         if init_params is not None and fam in init_params:
-            model.load_layers(cohort_params_from_numpy(init_params[fam]))
+            load_cohort_params(model, init_params[fam])
         packed = pack_cohort([splits[i] for i in ids])
         data = {"x": torch.as_tensor(packed["x"], dtype=torch.float32,
                                      device=dev),
                 "y": torch.as_tensor(packed["y"], dtype=torch.long,
                                      device=dev)}
+        opt = fam_opts.get(fam, default_opt)
         cohorts.append(Cohort(fam, model, opt.init(list(model.parameters())),
-                              np.asarray(ids), data))
+                              np.asarray(ids), data, opt))
     if isinstance(static_weights, np.ndarray):
         static_weights = static_weights_from_numpy(static_weights, dev)
     elif static_weights is not None:
@@ -211,7 +222,7 @@ def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
                                             dev),
         ref_x=torch.as_tensor(ds.ref_x, dtype=torch.float32, device=dev),
         ref_y=torch.as_tensor(ds.ref_y, dtype=torch.int32, device=dev),
-        optimizer=opt, n_clients=n, generator=gen,
+        n_clients=n, generator=gen,
         static_weights=getattr(pol, "static_weights", None))
     return fed, pol
 
@@ -292,8 +303,7 @@ class FederationEngine:
 
     @classmethod
     def build(cls, ds: FederatedDataset, splits: Sequence[ClientSplit],
-              families: Mapping[str, MLPConfig],
-              assignment: Optional[Sequence[str]],
+              families: Families, assignment: Assignment,
               policy: Union[str, Protocol, ServerPolicy],
               *, config: Optional[FederationConfig] = None,
               schedule: Union[None, str, Schedule] = None, seed: int = 0,
@@ -301,15 +311,17 @@ class FederationEngine:
               device: Device = None,
               init_params: Optional[Mapping[str, Mapping]] = None,
               batch_indices: Optional[BatchIndices] = None,
-              static_weights=None) -> "FederationEngine":
+              static_weights=None,
+              optimizer: Optional[Optimizer] = None) -> "FederationEngine":
         """``schedule`` is a Schedule, a registered name or None (always
         on); ``device=None`` is the card, and raises without one.
         ``static_weights`` is D-Dist's dense (N,N) graph (numpy or
-        tensor); without it D-Dist draws one."""
+        tensor); without it D-Dist draws one. ``optimizer`` overrides
+        every family's default."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
             seed=seed, init_params=init_params,
-            static_weights=static_weights)
+            static_weights=static_weights, optimizer=optimizer)
         return cls(fed, pol, schedule, config=config,
                    callbacks=callbacks, batch_indices=batch_indices)
 
@@ -409,8 +421,7 @@ class AsyncFederationEngine:
 
     @classmethod
     def build(cls, ds: FederatedDataset, splits: Sequence[ClientSplit],
-              families: Mapping[str, MLPConfig],
-              assignment: Optional[Sequence[str]],
+              families: Families, assignment: Assignment,
               policy: Union[str, Protocol, ServerPolicy],
               *, arrivals: Union[None, str, Schedule, ArrivalProcess] = None,
               trigger: Union[None, str, Trigger] = None,
@@ -419,15 +430,18 @@ class AsyncFederationEngine:
               device: Device = None,
               init_params: Optional[Mapping[str, Mapping]] = None,
               batch_indices: Optional[BatchIndices] = None,
-              static_weights=None) -> "AsyncFederationEngine":
+              static_weights=None,
+              optimizer: Optional[Optimizer] = None
+              ) -> "AsyncFederationEngine":
         """``arrivals`` is an ArrivalProcess, a Schedule (shimmed), a
         registered name or None (always on, unit cadence); ``trigger`` a
         Trigger, a name or None (every upload). ``device=None`` is the
-        card, and raises without one."""
+        card, and raises without one. ``optimizer`` overrides every
+        family's default."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
             seed=seed, init_params=init_params,
-            static_weights=static_weights)
+            static_weights=static_weights, optimizer=optimizer)
         return cls(fed, pol, arrivals=arrivals, trigger=trigger,
                    config=config, callbacks=callbacks,
                    batch_indices=batch_indices)

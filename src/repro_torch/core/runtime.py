@@ -289,7 +289,7 @@ class ClientRuntime:
                 batch = cohort_batch(coh.data, self._indices(ci, coh))
                 rows = torch.as_tensor(coh.client_ids, device=dev)
                 coh.opt_state, _ = cohort_step(
-                    coh.model, fed.optimizer, coh.opt_state, batch["x"],
+                    coh.model, coh.optimizer, coh.opt_state, batch["x"],
                     batch["y"], fed.ref_x, fed.targets[rows], avail[rows],
                     self.policy.rho, use_ref)
             self.step += 1

@@ -12,8 +12,16 @@ Codecs are registered by name (``@register_codec``) and reachable from
 This port carries:
 
   dense32   fp32 pass-through — the bit-identical oracle (default)
+  dense16   bf16 cast, 2x
   int8      per-row affine quantization: uint8 codes + per-row bf16
             scale / zero point (the row minimum), C + 4 bytes a row
+  topk      top-k probabilities per reference sample (bf16 values +
+            int16 class ids) + a renormalized bf16 tail mass
+
+dense32, dense16 and int8 encode byte for byte as the reference does.
+topk does too in the prob domain; in the log domain its exp is fp64
+rounded once to fp32, the same bits on the CPU and the card, where the
+reference's is its backend's own fp32 exp.
 
 ``domain`` records what the values are: messenger LOG-probabilities
 (``"log"``, the uplink) or probability targets (``"prob"``, the
@@ -203,6 +211,24 @@ class Dense32(Codec):
         return payload.arrays["data"]
 
 
+@register_codec("dense16")
+@dataclasses.dataclass(frozen=True)
+class Dense16(Codec):
+    """bf16 cast (round to nearest even, as the reference's). Lossy:
+    decode renormalizes in its domain."""
+
+    def encode(self, x: torch.Tensor, domain: str = "log") -> Payload:
+        self._check(domain)
+        return Payload("dense16", domain, tuple(x.shape),
+                       {"data": x.to(torch.bfloat16)})
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        x = payload.arrays["data"].float()
+        if payload.domain == "log":
+            return torch.log_softmax(x, dim=-1)
+        return _renorm_probs(x)
+
+
 def quantize_int8(x: torch.Tensor):
     """(..., C) fp32 -> (q uint8, scale bf16, zp bf16), per row.
 
@@ -256,6 +282,63 @@ class Int8(Codec):
         return ops.int8_pairwise_kl(payload.arrays["q"],
                                     payload.arrays["scale"],
                                     payload.arrays["zp"])
+
+
+@register_codec("topk")
+@dataclasses.dataclass(frozen=True)
+class TopK(Codec):
+    """Soft-label sparsification: keep the ``k`` largest probabilities
+    per reference sample (bf16 values + int16 class ids, int32 past
+    C = 32767) plus one bf16 tail mass, spread uniformly over the unsent
+    classes on decode. Ties keep the lowest class index first, as
+    ``jax.lax.top_k`` does (a stable descending sort)."""
+
+    k: int = 8
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"topk k must be >= 1, got {self.k}")
+
+    @classmethod
+    def from_arg(cls, arg: str) -> "TopK":
+        return cls(k=int(arg)) if arg else cls()
+
+    def encode(self, x: torch.Tensor, domain: str = "log") -> Payload:
+        self._check(domain)
+        x = x.float()
+        c = x.shape[-1]
+        # fp64 exp rounded once: the same bits on any device
+        p = torch.exp(x.double()).float() if domain == "log" else x
+        k = min(self.k, c)
+        vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
+        vals, idx = vals[..., :k], idx[..., :k]
+        # the tail of a near-complete top k is a rounding residue, so its
+        # summation order shows in the decoded unsent classes: sum left to
+        # right in fp32, as the reference does, the same on any device
+        total = vals[..., 0]
+        for j in range(1, k):
+            total = total + vals[..., j]
+        tail = torch.clamp(1.0 - total, 0.0, 1.0)
+        idt = torch.int16 if c <= torch.iinfo(torch.int16).max \
+            else torch.int32
+        return Payload("topk", domain, tuple(x.shape),
+                       {"idx": idx.to(idt), "vals": vals.to(torch.bfloat16),
+                        "tail": tail.to(torch.bfloat16)})
+
+    def decode(self, payload: Payload) -> torch.Tensor:
+        shape = tuple(payload.shape)
+        c = shape[-1]
+        idx = payload.arrays["idx"].long()
+        vals = payload.arrays["vals"].float()
+        tail = payload.arrays["tail"].float()
+        k = idx.shape[-1]
+        base = tail / max(c - k, 1) if k < c else torch.zeros_like(tail)
+        p = base[..., None].expand(shape).clone()
+        p.scatter_(-1, idx, vals)
+        p = _renorm_probs(p)
+        if payload.domain == "log":
+            return torch.log(p)
+        return p
 
 
 def _renorm_probs(x: torch.Tensor) -> torch.Tensor:

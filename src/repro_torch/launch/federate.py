@@ -8,6 +8,9 @@ event clock.
       --local-steps 2 --dataset sc_like
   python -m repro_torch.launch.federate --delta --selection ivf \
       --uplink int8 --device cuda
+  python -m repro_torch.launch.federate --dataset sc_like \
+      --zoo mlp-s,resnet,transformer,ssm,rglru \
+      --assignment mlp-s:0.3,resnet:0.3,transformer:0.2,ssm:0.1,rglru:0.1
 
 Event clock (virtual-time async runtime):
 
@@ -38,7 +41,8 @@ from repro_torch.core import (ArrivalProcess, AsyncFederationEngine,
                               registered_triggers)
 from repro_torch.core.policies import registered_policies
 from repro_torch.data import DATASETS, make_splits
-from repro_torch.models import hetero_mlp_zoo
+from repro_torch.models import (DEFAULT_ZOO, build_zoo, parse_assignment,
+                                registered_families)
 
 
 def make_schedule(args, n_clients: int, rounds: int) -> Optional[Schedule]:
@@ -122,6 +126,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--trigger-k", type=int, default=8)
     ap.add_argument("--trigger-period", type=float, default=1.0)
     ap.add_argument("--quorum-frac", type=float, default=0.5)
+    ap.add_argument("--zoo", default=",".join(DEFAULT_ZOO),
+                    help="comma-separated model families "
+                         f"({', '.join(registered_families())})")
+    ap.add_argument("--assignment",
+                    help="family per client: 'fam:w,...' weighted shares "
+                         "(the paper's Table-I ratios) or 'fam,fam,...' "
+                         "round-robin; default round-robins --zoo")
     ap.add_argument("--samples-per-client", type=int, default=60)
     ap.add_argument("--ref-size", type=int, default=120)
     ap.add_argument("--label-noise", type=float, default=0.3)
@@ -160,7 +171,12 @@ def main(argv=None) -> dict:
     ds = DATASETS[args.dataset](samples_per_client=args.samples_per_client,
                                 ref_size=args.ref_size)
     splits = make_splits(ds, seed=args.seed, label_noise=args.label_noise)
-    zoo = hetero_mlp_zoo(ds.feature_len, ds.n_classes)
+    try:
+        zoo = build_zoo(args.zoo, ds.feature_len, ds.n_classes)
+        assignment = parse_assignment(args.assignment, list(zoo),
+                                      ds.n_clients)
+    except (KeyError, ValueError) as e:
+        ap.error(str(e))
     protocol = Protocol(args.policy, rho=args.rho, q=args.q, k=args.k,
                         interval=args.interval)
     config = FederationConfig(rounds=args.rounds, batch_size=args.batch,
@@ -178,7 +194,7 @@ def main(argv=None) -> dict:
               f"clients={ds.n_clients} device={args.device} "
               f"config={config}")
         engine = AsyncFederationEngine.build(
-            ds, splits, zoo, None, protocol, arrivals=arrivals,
+            ds, splits, zoo, assignment, protocol, arrivals=arrivals,
             trigger=trigger, config=config, seed=args.seed + 1,
             device=args.device)
         hist = engine.fit(splits, until=args.until)
@@ -188,7 +204,7 @@ def main(argv=None) -> dict:
               f"dataset={args.dataset} clients={ds.n_clients} "
               f"device={args.device} config={config}")
         engine = FederationEngine.build(
-            ds, splits, zoo, None, protocol, config=config,
+            ds, splits, zoo, assignment, protocol, config=config,
             schedule=schedule, seed=args.seed + 1, device=args.device)
         hist = engine.fit(splits)
     prec, rec = precision_recall(engine.fed, splits, ds.n_classes)
@@ -214,6 +230,10 @@ def main(argv=None) -> dict:
         summary["schedule"] = args.schedule
     if hist.graph_stats:
         summary["graph"] = hist.graph_stats[-1]
+    if args.zoo != ",".join(DEFAULT_ZOO):
+        summary["zoo"] = args.zoo
+    if args.assignment:
+        summary["assignment"] = args.assignment
     print(json.dumps(summary, indent=2))
     return summary
 

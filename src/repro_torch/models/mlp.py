@@ -77,8 +77,17 @@ class CohortMLP(nn.Module):
         return h
 
 
+def mlp_family(cfg: MLPConfig):
+    """The tier's cohort builder, ``(n_clients, *, device, generator) ->
+    CohortMLP``."""
+    def build(n_clients: int, *, device, generator=None) -> CohortMLP:
+        return CohortMLP(cfg, n_clients, device=device, generator=generator)
+    return build
+
+
 def hetero_mlp_zoo(in_dim: int, n_classes: int) -> Dict[str, MLPConfig]:
-    """Three capacity tiers mirroring the paper's ResNet8/20/50 split."""
+    """Three capacity tiers mirroring the paper's ResNet8/20/50 split, as
+    configs (the engines build a ``CohortMLP`` for each)."""
     return {
         "mlp-s": MLPConfig("mlp-s", in_dim, (32,), n_classes),
         "mlp-m": MLPConfig("mlp-m", in_dim, (64, 64), n_classes),

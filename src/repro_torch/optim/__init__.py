@@ -1,3 +1,12 @@
-from repro_torch.optim.optimizers import SGDState, Optimizer, sgd
+from repro_torch.optim.optimizers import (AdamState, Optimizer, SGDState,
+                                          adam, adamw, apply_updates,
+                                          clip_by_global_norm, sgd,
+                                          state_tensors)
+from repro_torch.optim.schedules import (constant, cosine_decay,
+                                         linear_warmup, warmup_cosine)
 
-__all__ = ["SGDState", "Optimizer", "sgd"]
+__all__ = [
+    "AdamState", "Optimizer", "SGDState", "adam", "adamw", "apply_updates",
+    "clip_by_global_norm", "sgd", "state_tensors", "constant",
+    "cosine_decay", "linear_warmup", "warmup_cosine",
+]

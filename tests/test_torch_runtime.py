@@ -17,7 +17,6 @@ import repro.core as J
 import repro_torch.core as T
 from repro.optim import sgd as jax_sgd
 from repro_torch.launch import federate
-from repro_torch.optim import sgd
 
 N = 13
 
@@ -250,8 +249,8 @@ def _buses(trigger, delta=False):
                         optimizer=jax_sgd(0.1), n_clients=NB)
     tfed = T.Federation(cohorts=[], server=T.init_server(NB, R, C, "cpu"),
                         ref_x=torch.zeros((R, 4)),
-                        ref_y=torch.from_numpy(ref_y), optimizer=sgd(0.1),
-                        n_clients=NB, generator=torch.Generator())
+                        ref_y=torch.from_numpy(ref_y), n_clients=NB,
+                        generator=torch.Generator())
     jb = J.ServerBus(jfed, jax_as_policy(J.sqmd(q=NB, k=2)),
                      trigger=trigger(J), backend="jnp", delta=delta)
     tb = T.ServerBus(tfed, as_policy(T.sqmd(q=NB, k=2)),

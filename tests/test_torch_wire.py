@@ -7,6 +7,8 @@ the bf16-rounded parameters, round half to even and cast to bf16 with
 round-to-nearest-even). Decodes agree to 1e-6: the two frameworks'
 log_softmax round differently in the last fp32 bit.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,3 +175,136 @@ def test_server_bus_meters_int8_bytes_both_ways():
                                   want.repo_logp.numpy())
     assert float(fed.targets[~torch.from_numpy(up)].abs().sum()) == 0.0
     assert bus.uploads_since_fire == 0 and not bus.fresh_since_fire.any()
+
+
+# --- dense16 and topk ---------------------------------------------------------
+#
+# Both encodes are byte for byte the reference's: the bf16 casts round to
+# nearest even in both frameworks, top-k keeps the lowest class index
+# first among ties, and the tail is summed left to right (XLA's CPU
+# backend reduces rows of up to 32 in order). The log domain's exp is
+# each framework's own: the port's is fp64 rounded once to fp32, the
+# reference's XLA's fp32 polynomial, and they differ in the last bit. So
+# for the log domain the port encodes the reference's exp of the
+# messengers as probabilities, and its own exp is held to one bf16 ulp of
+# the reference's by test_topk_log_encode_over_every_magnitude. Decodes
+# agree to 1e-5: log_softmax, log and the renormalizing division round
+# differently in the last fp32 bit.
+
+def _with_ties(x, domain):
+    """Rows of exact ties in both domains: a uniform row, a row whose top
+    two are equal, a row that is all one value but one."""
+    x = x.copy()
+    c = x.shape[-1]
+    flat = x.reshape(-1, x.shape[-2], c)
+    uniform = np.full(c, 1.0 / c, np.float32)
+    top2 = np.full(c, 0.5 / max(c - 2, 1), np.float32)
+    top2[[1, c - 1]] = 0.25
+    rows = [uniform, top2 / top2.sum()]
+    for i, row in enumerate(rows):
+        flat[0, i] = np.log(row) if domain == "log" else row
+    return flat.reshape(x.shape)
+
+
+# C=3 (every class sent: the tail is the rounding residue), C=10 with
+# leading dims, C=32 (the longest row the reference sums in order)
+WIRE_SHAPES = [(32, 24, 3), (3, 4, 40, 10), (5, 9, 32)]
+WIRE_SPECS = ["dense16", "topk", "topk:1", "topk:3", "topk:32"]
+
+
+@pytest.mark.parametrize("spec", WIRE_SPECS)
+@pytest.mark.parametrize("shape", WIRE_SHAPES)
+@pytest.mark.parametrize("domain", ["log", "prob"])
+def test_dense16_and_topk_encode_is_byte_identical(spec, shape, domain):
+    x = _with_ties(_messengers(shape, sum(shape) + len(spec), domain),
+                   domain)
+    want = jwire.encode(spec, jnp.asarray(x), domain=domain)
+    if spec.startswith("topk") and domain == "log":
+        got = dataclasses.replace(wire.encode(
+            spec, torch.from_numpy(np.array(jnp.exp(x))), domain="prob"),
+            domain="log")
+    else:
+        got = wire.encode(spec, torch.from_numpy(x), domain=domain)
+    assert got.codec == want.codec and got.domain == domain
+    assert got.shape == tuple(want.shape) == shape
+    assert sorted(got.arrays) == sorted(want.arrays)
+    for name, a in got.arrays.items():
+        b = np.asarray(want.arrays[name])
+        if a.dtype == torch.bfloat16:
+            assert b.dtype.name == "bfloat16"
+            np.testing.assert_array_equal(_bits(a), b.view(np.uint16))
+        else:
+            assert a.numpy().dtype == b.dtype
+            np.testing.assert_array_equal(a.numpy(), b)
+    assert wire.payload_bytes(got) == jwire.payload_bytes(want)
+    np.testing.assert_allclose(wire.decode(got).numpy(),
+                               np.asarray(jwire.decode(want)), atol=1e-5,
+                               rtol=0)
+
+
+def test_topk_ties_keep_the_lowest_class_first():
+    p = torch.tensor([[[0.1, 0.3, 0.3, 0.3]]])
+    got = wire.encode("topk:2", p, domain="prob")
+    assert got.arrays["idx"].tolist() == [[[1, 2]]]
+    assert got.arrays["idx"].dtype == torch.int16
+    want = jwire.encode("topk:2", jnp.asarray(p.numpy()), domain="prob")
+    np.testing.assert_array_equal(got.arrays["idx"].numpy(),
+                                  np.asarray(want.arrays["idx"]))
+
+
+def test_topk_and_dense16_registry_and_bytes():
+    assert set(wire.registered_codecs()) == set(jwire.registered_codecs())
+    assert wire.as_codec("topk:4") == wire.TopK(k=4)
+    assert wire.as_codec("topk").k == wire.TopK().k == jwire.TopK().k
+    assert isinstance(wire.as_codec("dense16"), wire.Dense16)
+    with pytest.raises(ValueError, match=">= 1"):
+        wire.as_codec("topk:0")
+    with pytest.raises(ValueError, match="no argument"):
+        wire.as_codec("dense16:2")
+    n, r, c = 5, 20, 32
+    x = torch.from_numpy(_messengers((n, r, c), 8))
+    assert wire.payload_bytes(wire.encode("dense16", x)) == n * r * c * 2
+    # k bf16 values + k int16 ids + one bf16 tail a row
+    assert wire.bytes_per_messenger(wire.encode("topk:4", x)) \
+        == r * (4 * 2 + 4 * 2 + 2)
+
+
+@pytest.mark.parametrize("domain", ["log", "prob"])
+def test_topk_decode_is_normalized_and_spreads_the_tail(domain):
+    x = torch.from_numpy(_messengers((4, 6, 7), 9, domain))
+    dec = wire.decode(wire.encode("topk:3", x, domain=domain))
+    p = torch.exp(dec) if domain == "log" else dec
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, atol=1e-5)
+    # the four unsent classes share the tail equally
+    probs = torch.exp(x) if domain == "log" else x
+    unsent = torch.sort(probs, dim=-1, descending=True,
+                        stable=True).indices[..., 3:]
+    spread = torch.gather(p, -1, unsent)
+    assert torch.allclose(spread, spread[..., :1].expand_as(spread),
+                          rtol=1e-6)
+
+
+def test_topk_log_encode_over_every_magnitude():
+    """The port's own log-domain exp, over log-probabilities of every
+    magnitude down to the subnormal range the reference flushes to zero:
+    values within one bf16 ulp of the reference's (rtol 2**-7; atol the
+    smallest normal fp32, for the flushed subnormals), and the
+    reference's class ids wherever its value is normal (among its
+    flushed zeros it keeps the lowest ids, the port the largest
+    subnormals)."""
+    tiny = float(np.finfo(np.float32).tiny)
+    rng = np.random.default_rng(10)
+    x = np.concatenate([rng.normal(size=20_000) * 3 - 3,
+                        rng.uniform(-104, 0, 20_000),
+                        np.linspace(-88, -86, 1000)]).astype(np.float32)
+    x = x.reshape(41, 25, 40)
+    got = wire.encode("topk:6", torch.from_numpy(x))
+    want = jwire.encode("topk:6", jnp.asarray(x))
+    vals = got.arrays["vals"].float().numpy()
+    want_vals = np.asarray(want.arrays["vals"]).astype(np.float32)
+    np.testing.assert_allclose(vals, want_vals, rtol=2.0 ** -7, atol=tiny)
+    normal = want_vals >= tiny
+    assert (~normal).any() and normal.mean() > 0.9
+    np.testing.assert_array_equal(got.arrays["idx"].numpy()[normal],
+                                  np.asarray(want.arrays["idx"])[normal])
+    assert (vals[~normal] < tiny).all()
