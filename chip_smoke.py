@@ -115,10 +115,31 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     cohort builders, round-robin, on phase 16's inputs, 2 rounds (cut
     from 3 for time), held against its CPU run as phase 16 is, with the
     same logit-gap witness and per-family times;
+18. train and serve: ``QueryRuntime`` on phase 14's straggler regime
+    (quorum fires, delta rounds) to t=9, once under
+    ``PoissonQueries(rate=0.5)`` with ``micro:8`` and once under
+    ``DiurnalQueries(burst_frac=0.5)`` with ``MicroBatch(16, 0.25)``, each
+    held against its CPU twin: every record's seq, client, arrival and
+    serve times, snapshot version, staleness, batch size, buckets and
+    queue depth equal, served logits within 1e-2 (predictions may flip
+    only at near ties), B1, B2 and the gather launched on the fires; on
+    the final snapshot each cohort's answers equal, bit for bit, the same
+    forward on the snapshot's params at the same padded shape. Then
+    ``QueryEngine.serve`` at buckets 1, 8, 32 and 128 for each MLP tier
+    and for a RESNET50 cohort (width 16, full width): back-to-back ms,
+    device time, kernels a call and busy share under torch.profiler; and
+    each publish's copy (bytes, ms);
+19. checkpoints: phase 5's federation saved after 2 rounds and restored
+    into a card engine built from other weights, whose 3 more rounds
+    must equal the uninterrupted card run bit for bit; phase 4's N=4096
+    server state (with its targets) saved and restored onto the card
+    (seconds, MB); that file without ``div_cache``, restored: B1 rebuilds
+    the cache, held against the plain ``pairwise_kl`` at phase 3's
+    tolerance;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-17), then the last line
+    its launches in phases 14-19), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
@@ -1591,6 +1612,326 @@ def resnet_families(ds):
             for cfg in (RESNET8, RESNET20, RESNET50)}
 
 
+# phase 18: each query workload (label, workload, batch policy) runs on
+# phase 14's straggler regime (quorum fires, delta rounds) to
+# ASYNC_UNTIL; then QueryEngine.serve is timed at these buckets
+SERVE_REGIME = "straggler"
+SERVE_BUCKETS = (1, 8, 32, 128)
+RECORD_KEYS = ("seq", "client_id", "t_arrival", "t_served", "version",
+               "staleness", "batch_size", "buckets", "depth_at_admission")
+
+
+def serve_runs():
+    from repro_torch.serve import DiurnalQueries, MicroBatch, PoissonQueries
+    return (("poisson-micro8", PoissonQueries(rate=0.5), "micro:8"),
+            ("diurnal-burst-micro16", DiurnalQueries(burst_frac=0.5),
+             MicroBatch(max_batch=16, max_wait=0.25)))
+
+
+def serve_run(dev, inputs, workload, policy, logits_out):
+    """Phase 14's asynchronous federation of SERVE_REGIME on ``dev`` with
+    a QueryRuntime on its clock, run to ASYNC_UNTIL; every served batch's
+    logits go to ``logits_out``."""
+    from repro_torch.serve import QueryRuntime, split_query_stream
+    eng = async_federation(dev, inputs, SERVE_REGIME, [])
+    qr = QueryRuntime(eng, workload=workload, policy=policy,
+                      features=split_query_stream(inputs[1]))
+    serve = qr.qengine.serve
+
+    def keeping(*args, **kw):
+        res = serve(*args, **kw)
+        logits_out.append(res.logits)
+        return res
+
+    qr.qengine.serve = keeping
+    qr.run(inputs[1], until=ASYNC_UNTIL)
+    return qr
+
+
+def hold_records(card, cpu, card_logits, cpu_logits) -> dict:
+    """The card's serving records against the CPU run's: every field of
+    RECORD_KEYS equal, served logits within phase 14's 1e-2, and a
+    prediction differing only where the CPU's top two logits are within
+    twice that."""
+    check(len(card.records) == len(cpu.records) > 0,
+          f"{len(card.records)} records on the card, {len(cpu.records)} on "
+          f"the CPU")
+    for a, b in zip(card.records, cpu.records):
+        for key in RECORD_KEYS:
+            check(a[key] == b[key], f"record {a['seq']}: {key} {a[key]} on "
+                                    f"the card, {b[key]} on the CPU")
+    check(len(card_logits) == len(cpu_logits), "other batches served")
+    g, h = np.concatenate(card_logits), np.concatenate(cpu_logits)
+    worst = float(np.abs(g - h).max())
+    check(worst < 1e-2, f"served logits differ by {worst:.3e}")
+    preds = np.array([[a["pred"], b["pred"]]
+                      for a, b in zip(card.records, cpu.records)])
+    flip = preds[:, 0] != preds[:, 1]
+    top2 = np.sort(h, -1)[:, -2:]
+    check(float((top2[:, 1] - top2[:, 0])[flip].max(initial=0.0)) < 2e-2,
+          "a served prediction flipped away from a near-tie")
+    return {"served_logit_max_abs_diff": worst,
+            "near_tie_pred_flips": int(flip.sum())}
+
+
+def hold_snapshot_forward(qr, splits, dev) -> None:
+    """On the final snapshot, each cohort answers a batch of its clients
+    with the bits of the same forward on the snapshot's params at the
+    same padded shape."""
+    from repro_torch.serve import bucket_size, serve_step
+    snap = qr.store.current()
+    for view in snap.views:
+        check(all(p.is_cuda for p in view.params.values()),
+              f"{view.family_name}'s snapshot is off the card")
+        ids = [int(c) for c in view.client_ids[:5]]
+        xs = np.stack([splits[c].test_x[0] for c in ids])
+        res = qr.qengine.serve(ids, xs, ASYNC_UNTIL, snapshot=snap)
+        pad = bucket_size(len(ids)) - len(ids)
+        rows = np.concatenate([snap.row_of[ids], np.zeros(pad, np.int64)])
+        xp = np.concatenate([xs, np.zeros((pad,) + xs.shape[1:], xs.dtype)])
+        want = serve_step(view.module, view.params,
+                          torch.as_tensor(rows, device=dev),
+                          torch.as_tensor(xp, dtype=torch.float32,
+                                          device=dev))[:len(ids)]
+        check(np.array_equal(res.logits, want.cpu().numpy()),
+              f"{view.family_name}: served logits differ from the same "
+              f"forward on the snapshot's params")
+
+
+def serve_times(label: str, store, view_index: int, splits,
+                iters: int) -> dict:
+    """QueryEngine.serve of one cohort's clients at each SERVE_BUCKETS
+    batch: back-to-back ms (each call ends in the logits' copy to the
+    host), and one call under torch.profiler (device time, kernels a
+    call, busy share)."""
+    from repro_torch.serve import QueryEngine
+    qe = QueryEngine(store)
+    view = store.current().views[view_index]
+    ids = [int(c) for c in view.client_ids]
+    out = {}
+    for b in SERVE_BUCKETS:
+        cids = [ids[i % len(ids)] for i in range(b)]
+        xs = np.stack([splits[c].test_x[i % len(splits[c].test_x)]
+                       for i, c in enumerate(cids)])
+        res = qe.serve(cids, xs, 0.0)
+        check(res.buckets == (b,) and np.isfinite(res.logits).all(),
+              f"{label}: bucket {res.buckets} or non-finite logits")
+        ms = cuda_ms(lambda: qe.serve(cids, xs, 0.0), iters)
+        prof = device_breakdown(f"{label} serve b={b}",
+                                lambda: qe.serve(cids, xs, 0.0))
+        out[b] = {"ms": ms, "device_ms": prof.get("device_ms"),
+                  "kernels": prof.get("n_kernels"),
+                  "busy_share": prof.get("busy_share"),
+                  "compute_s": res.compute_s}
+        print(f"  [{CARD}] {label} serve b={b}: {ms:.3f} ms back to back, "
+              f"device {prof.get('device_ms') or 0:.4f} ms in "
+              f"{prof.get('n_kernels')} kernels, busy "
+              f"{prof.get('busy_share') or 0:.1%}")
+    return out
+
+
+def publish_times(label: str, fed, iters: int) -> dict:
+    """One publish (the copy of every cohort's stacked params): its bytes,
+    CUDA-event ms back to back and host ms."""
+    from repro_torch.serve import SnapshotStore
+    store = SnapshotStore()
+    ms = cuda_ms(lambda: store.publish(fed, 0.0), iters)
+    row = {"bytes": store.publish_bytes, "ms": ms,
+           "host_ms": store.publish_s / store.n_published * 1e3}
+    print(f"  [{CARD}] {label} publish: {row['bytes'] / 1e6:.2f} MB in "
+          f"{ms:.4f} ms back to back (host {row['host_ms']:.4f} ms)")
+    return row
+
+
+def serve_phase(dev, inputs) -> dict:
+    """Train and serve: each query workload through QueryRuntime on phase
+    14's asynchronous federation, held against its CPU twin (records
+    field for field, served logits, the bits of the snapshot's forward),
+    with its B1/B2/B3 launches; then QueryEngine.serve and publish times
+    for the MLP tiers and for a RESNET50 cohort at full width."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import SnapshotStore
+    out = {"launches": launches_of()}
+    for label, workload, policy in serve_runs():
+        print(f"  -- {label}")
+        card_logits, cpu_logits = [], []
+        ops.reset_launch_counts()
+        qr, wall = timed(lambda: serve_run(dev, inputs, workload, policy,
+                                           card_logits))
+        counts = ops.launch_counts()
+        check(all(counts[k] > 0 for k in DENSE_PATH),
+              f"a kernel of this path never launched: {counts}")
+        check(all(v == 0 for k, v in counts.items() if k not in DENSE_PATH),
+              f"a kernel off this path launched: {counts}")
+        cpu = serve_run("cpu", inputs, workload, policy, cpu_logits)
+        held = hold_records(qr, cpu, card_logits, cpu_logits)
+        hold_snapshot_forward(qr, inputs[1], dev)
+        s = qr.summary(ASYNC_UNTIL)
+        store = qr.store
+        row = {"launches": counts, "run_s": wall / 1e3, **held,
+               "n_served": s["n_served"], "mean_batch": s["mean_batch"],
+               "versions_served": s["versions_served"],
+               "staleness_mean": s["staleness_mean"],
+               "compute_wall_s": s["compute_wall_s"],
+               "snapshots_published": store.n_published,
+               "publish_bytes": store.publish_bytes,
+               "publish_host_s": store.publish_s,
+               "server_rounds": qr.engine.bus.n_triggers}
+        print(f"  [{CARD}] {label}: {s['n_served']} queries in "
+              f"{qr.engine.bus.n_triggers} server fires, mean batch "
+              f"{s['mean_batch']:.2f}, {s['versions_served']} versions "
+              f"served, {store.n_published} publishes of "
+              f"{store.publish_bytes / 1e3:.1f} kB ({store.publish_s * 1e3:.2f} "
+              f"ms host in all); run {wall / 1e3:.3f} s; serve compute "
+              f"{s['compute_wall_s'] * 1e3:.2f} ms in all; launches {counts}; "
+              f"records equal the CPU's, served logits within "
+              f"{held['served_logit_max_abs_diff']:.2e}, "
+              f"{held['near_tie_pred_flips']} near-tie flips")
+        out[label] = row
+        for k in out["launches"]:
+            out["launches"][k] += counts[k]
+    store = SnapshotStore()
+    qr.engine.attach_snapshots(store)
+    out["mlp"] = {v.family_name: serve_times(v.family_name, store, i,
+                                             inputs[1], iters=20)
+                  for i, v in enumerate(store.current().views)}
+    out["mlp_publish"] = publish_times("MLP tiers (32 clients)",
+                                       qr.engine.fed, iters=20)
+    res_inputs = zoo_inputs(resnet_families, None)
+    eng = zoo_federation(dev, res_inputs, 1, [])
+    store = eng.attach_snapshots(SnapshotStore())
+    vi = [v.family_name for v in store.current().views].index("resnet50-1d")
+    view = store.current().views[vi]
+    per_client = sum(p[0].numel() for p in view.params.values())
+    print(f"  RESNET50 cohort: {view.n_real} clients, {per_client} params "
+          f"a client")
+    out["resnet50"] = {"clients": view.n_real,
+                       "params_per_client": per_client,
+                       "buckets": serve_times("RESNET50", store, vi,
+                                              res_inputs[1], iters=5)}
+    out["resnet_publish"] = publish_times("RESNET8/20/50 (32 clients)",
+                                          eng.fed, iters=10)
+    return out
+
+
+def checkpoint_phase(dev, inputs) -> dict:
+    """Checkpoints on the card: phase 5's federation saved after 2 rounds
+    and restored into a card engine built from other weights, whose 3
+    more rounds must equal the uninterrupted card run bit for bit; the
+    N=4096 server state of phase 4 saved and restored (seconds, MB); a
+    file without ``div_cache`` at N=4096, rebuilt on B1 and held against
+    the plain ``pairwise_kl``."""
+    import tempfile
+    from repro_torch.checkpoint import (restore_federation, restore_pytree,
+                                        save_federation, save_pytree)
+    from repro_torch.core import Federation, init_server, policy_round, sqmd
+    from repro_torch.core.policies import as_policy
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import state_tensors
+    ds, splits, init_params, draws = inputs
+    out = {}
+    ops.reset_launch_counts()
+    oracle = federation(dev, splits, ds, init_params, draws, [], {})
+    first = federation(dev, splits, ds, init_params, draws, [], {})
+    for rnd in range(5):
+        oracle.run_round(rnd)
+    for rnd in range(2):
+        first.run_round(rnd)
+    other = {fam: {"layers": [{k: v * np.float32(0.5) + np.float32(0.1)
+                               for k, v in layer.items()}
+                              for layer in tree["layers"]]}
+             for fam, tree in init_params.items()}
+    resumed = federation(dev, splits, ds, other, draws, [], {})
+    with tempfile.TemporaryDirectory() as tmp:
+        _, save_ms = timed(lambda: save_federation(
+            tmp, first.fed, step=2, bus=first.bus, clients=first.clients))
+        _, restore_ms = timed(lambda: restore_federation(
+            tmp, resumed.fed, bus=resumed.bus, clients=resumed.clients))
+    for rnd in range(2, 5):
+        resumed.run_round(rnd)
+    counts = ops.launch_counts()
+    check(all(counts[k] > 0 for k in DENSE_PATH),
+          f"a kernel of this path never launched: {counts}")
+    mine = [*resumed.server, resumed.fed.targets]
+    want = [*oracle.server, oracle.fed.targets]
+    for a, b in zip(oracle.fed.cohorts, resumed.fed.cohorts):
+        want += [*a.model.parameters(), *state_tensors(a.opt_state)]
+        mine += [*b.model.parameters(), *state_tensors(b.opt_state)]
+    check(all(t.is_cuda for t in mine), "a restored tensor is off the card")
+    check(all(torch.equal(a, b) for a, b in zip(want, mine)),
+          "the resumed card run differs from the uninterrupted one")
+    check(resumed.bus.n_triggers == oracle.bus.n_triggers and np.array_equal(
+        resumed.bus.bytes_up, oracle.bus.bytes_up), "bus counters differ")
+    print(f"  [{CARD}] phase 5's federation saved after 2 rounds "
+          f"({save_ms:.1f} ms) and restored into an engine of other weights "
+          f"({restore_ms:.1f} ms): its 3 more rounds equal the "
+          f"uninterrupted card run bit for bit ({len(mine)} tensors)")
+    out["resume"] = {"save_ms": save_ms, "restore_ms": restore_ms,
+                     "tensors_equal": len(mine), "launches": counts}
+
+    n, r, c = SERVER
+    state, labels = server_repository(dev)
+    new, targets, _ = policy_round(state, as_policy(sqmd(q=64, k=8)), labels)
+
+    def server_fed(server, tgt=None):
+        return Federation(cohorts=[], server=server, ref_x=labels,
+                          ref_y=labels, n_clients=n,
+                          generator=torch.Generator(device=dev),
+                          targets=tgt)
+
+    big = server_fed(new, targets)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, save_ms = timed(lambda: save_federation(tmp, big, step=1))
+        path = Path(tmp) / "step_1.msgpack"
+        mb = path.stat().st_size / 1e6
+        fresh = server_fed(init_server(n, r, c, device=dev))
+        _, restore_ms = timed(lambda: restore_federation(tmp, fresh,
+                                                         step=1))
+        check(all(torch.equal(a, b) for a, b in zip(big.server,
+                                                    fresh.server))
+              and torch.equal(big.targets, fresh.targets),
+              f"the N={n} server state did not come back as saved")
+        check(all(t.is_cuda for t in fresh.server),
+              "a restored server tensor is off the card")
+        print(f"  [{CARD}] N={n} server state and targets: {mb:.1f} MB, "
+              f"save {save_ms / 1e3:.3f} s, restore onto the card "
+              f"{restore_ms / 1e3:.3f} s")
+        tree = restore_pytree(str(path))
+        del tree["server"]["div_cache"]
+        save_pytree(str(Path(tmp) / "legacy" / "step_1.msgpack"), tree)
+        del tree
+        legacy = server_fed(init_server(n, r, c, device=dev))
+        ops.reset_launch_counts()
+        _, legacy_ms = timed(lambda: restore_federation(
+            str(Path(tmp) / "legacy"), legacy))
+        rebuild = ops.launch_counts()
+    check(rebuild["pairwise_kl_pair"] > 0 and all(
+        v == 0 for k, v in rebuild.items()
+        if k not in ("pairwise_kl_split", "pairwise_kl_pair")),
+        f"the div_cache rebuild launched {rebuild}")
+    lp = legacy.server.repo_logp
+    plain = torch.cat([ref.pairwise_kl_pair_ref(lp[i:i + ops.CHUNK_ROWS], lp)
+                       for i in range(0, n, ops.CHUNK_ROWS)])
+    err, rel = errors(legacy.server.div_cache, plain)
+    atol, rtol = TOL["pairwise_kl_pair"]
+    check(torch.allclose(legacy.server.div_cache, plain, atol=atol,
+                         rtol=rtol), "the rebuilt div_cache disagrees with "
+                                     "the plain version")
+    same = bool(torch.equal(legacy.server.div_cache, new.div_cache))
+    print(f"  [{CARD}] legacy file (no div_cache) at N={n}: restored in "
+          f"{legacy_ms / 1e3:.3f} s, B1 rebuilt the cache ({rebuild}); max "
+          f"abs err against the plain pairwise_kl {err:.3e} (atol {atol:g}, "
+          f"rtol {rtol:g}), bit-equal to the round's cache: {same}")
+    launches = {k: counts[k] + rebuild[k] for k in counts}
+    out["server_state"] = {"mb": mb, "save_s": save_ms / 1e3,
+                           "restore_s": restore_ms / 1e3}
+    out["legacy"] = {"restore_s": legacy_ms / 1e3, "launches": rebuild,
+                     "max_abs_err": err, "max_rel_err": rel,
+                     "equals_round_cache": same}
+    out["launches"] = launches
+    return out
+
+
 def int8_wire(shape, dev, seed):
     """(q, scale, zp) of numpy-seeded log-softmax messengers, int8-encoded
     on the card by the port's codec."""
@@ -2315,6 +2656,13 @@ def main() -> int:
                            zoo_inputs(resnet_families, None),
                            RESNET_ROUNDS, iters=3, warm_profile=False)
 
+    print("[18] train and serve: QueryRuntime on the asynchronous "
+          "federation")
+    serving = serve_phase(dev, inputs)
+
+    print("[19] checkpoints")
+    checkpoints = checkpoint_phase(dev, inputs)
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -2347,9 +2695,10 @@ def main() -> int:
     for name in ("neighbor_mean", "neighbor_mean_split"):
         launches[name] = baselines["fedmd"]["launches"][name]
     # and the asynchronous path's, read around each run of phases 14-15,
-    # and the zoo federations' of phases 16-17
+    # the zoo federations' of phases 16-17, the serving runs' of phase 18
+    # and the checkpoint phase's rounds and div_cache rebuild
     for res in [*async_fed.values(), *async_server.values(), zoo_fed,
-                resnet_fed]:
+                resnet_fed, serving, checkpoints]:
         for name in launches:
             launches[name] += res["launches"][name]
     summary = {"kernels": [
@@ -2372,6 +2721,7 @@ def main() -> int:
          "baseline_federations": baselines,
          "async_federations": async_fed, "async_server": async_server,
          "zoo_federation": zoo_fed, "resnet_federation": resnet_fed,
+         "serving": serving, "checkpoints": checkpoints,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

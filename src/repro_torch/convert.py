@@ -18,14 +18,18 @@ port's tensors:
 ``load_cohort_params`` picks the right one for a cohort module;
 ``FederationEngine.build(init_params=...)`` goes through it.
 ``cohort_params_to_numpy`` goes the other way: a cohort module's params
-in the reference's layout, as numpy (list indices become string keys,
-which flatten to the same paths). ``numpy_cohort_inputs`` makes, from
-numpy seeds, the starting weights and batch draws that two runs of one
-federation (the card's and the CPU's) share.
+in the reference's layout, as numpy, lists where the reference's pytree
+has lists. ``opt_state_to_numpy`` and ``opt_state_from_numpy`` carry an
+optimizer state both ways: the port's lists aligned with
+``model.parameters()`` against the reference's pytrees shaped like the
+params, the per-client step counter as it is. ``numpy_cohort_inputs``
+makes, from numpy seeds, the starting weights and batch draws that two
+runs of one federation (the card's and the CPU's) share.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -80,26 +84,121 @@ def load_cohort_params(model: nn.Module, stacked: Mapping) -> None:
         raise TypeError(f"no conversion for a {type(model).__name__}")
 
 
-def cohort_params_to_numpy(model: nn.Module) -> Dict:
-    """A cohort module's stacked params in the reference's layout, as a
-    nested dict of numpy arrays: the inverse of ``load_cohort_params``."""
+def _reference_paths(model: nn.Module) -> List[str]:
+    """Each parameter's path in the reference's pytree ("layers/0/w",
+    "stages/1/0/w1"), in ``model.parameters()`` order."""
     if isinstance(model, CohortMLP):
-        return {"layers": [{"w": w.detach().cpu().numpy(),
-                            "b": b.detach().cpu().numpy()}
-                           for w, b in zip(model.w, model.b)]}
-    if not isinstance(model, StackedCohort):
-        raise TypeError(f"no conversion for a {type(model).__name__}")
+        return [f"layers/{name.split('.')[1]}/{name.split('.')[0]}"
+                for name, _ in model.named_parameters()]
+    if isinstance(model, StackedCohort):
+        return [name[len("params."):] for name, _ in model.named_parameters()]
+    raise TypeError(f"no conversion for a {type(model).__name__}")
+
+
+def _listify(node):
+    """Nested dicts whose keys are 0..n-1 (strings of digits) -> lists."""
+    if not isinstance(node, dict):
+        return node
+    keys = list(node)
+    if keys and all(k.isdigit() for k in keys) and \
+            sorted(map(int, keys)) == list(range(len(keys))):
+        return [_listify(node[str(i)]) for i in range(len(keys))]
+    return {k: _listify(v) for k, v in node.items()}
+
+
+def tensors_to_numpy(model: nn.Module,
+                     tensors: Sequence[torch.Tensor]) -> Dict:
+    """Tensors aligned with ``model.parameters()`` (the params, or one
+    optimizer moment) -> the reference's pytree of numpy arrays."""
+    resnet = getattr(model, "family", None) == "resnet"
     out: Dict = {}
-    for key, p in model.params.items():
-        t = p.detach().cpu()
-        if model.family == "resnet" and t.dim() == 4:  # conv: OIH -> HIO
+    for path, t in zip(_reference_paths(model), tensors, strict=True):
+        t = t.detach().cpu()
+        if resnet and t.dim() == 4:                  # conv: OIH -> HIO
             t = t.permute(0, 3, 2, 1)
-        *path, leaf = key.split("/")
+        *parents, leaf = path.split("/")
         node = out
-        for part in path:
+        for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = t.contiguous().numpy()
+    return _listify(out)
+
+
+def tensors_from_numpy(model: nn.Module, tree,
+                       like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The reference's pytree (params, or one optimizer moment) -> tensors
+    aligned with ``model.parameters()``, each of the shape, dtype and
+    device of its counterpart in ``like``; raises on a missing, extra or
+    misshapen leaf before anything is returned."""
+    if isinstance(model, CohortMLP):
+        pairs = cohort_params_from_numpy(tree)
+        named = {f"{k}.{i}": t for i, pair in enumerate(pairs)
+                 for k, t in zip("wb", pair)}
+    elif isinstance(model, StackedCohort):
+        named = {f"params.{k}": t for k, t in
+                 family_params_from_numpy(model.family, tree).items()}
+    else:
+        raise TypeError(f"no conversion for a {type(model).__name__}")
+    names = [name for name, _ in model.named_parameters()]
+    if set(named) != set(names):
+        raise ValueError(f"leaves {sorted(set(named) ^ set(names))} are in "
+                         f"only one of the file and the module")
+    out = []
+    for name, ref in zip(names, like):
+        t = named[name]
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                             f"module {tuple(ref.shape)}")
+        out.append(t.to(device=ref.device, dtype=ref.dtype))
     return out
+
+
+def cohort_params_to_numpy(model: nn.Module) -> Dict:
+    """A cohort module's stacked params in the reference's layout, as a
+    nested tree of numpy arrays: the inverse of ``load_cohort_params``."""
+    return tensors_to_numpy(model, list(model.parameters()))
+
+
+def opt_state_to_numpy(model: nn.Module, state: NamedTuple) -> Dict[str, Any]:
+    """An optimizer state (``SGDState``/``AdamState``) as the reference's
+    fields: the ``(n_c,)`` step counter as numpy, each per-parameter list
+    (momentum, mu, nu) as a pytree shaped like the params, None kept."""
+    out: Dict[str, Any] = {}
+    for name, value in state._asdict().items():
+        if isinstance(value, torch.Tensor):
+            out[name] = value.detach().cpu().numpy()
+        elif value is None:
+            out[name] = None
+        else:
+            out[name] = tensors_to_numpy(model, value)
+    return out
+
+
+def opt_state_from_numpy(model: nn.Module, fields: Mapping[str, Any],
+                         template: NamedTuple) -> NamedTuple:
+    """The reference's optimizer-state fields -> a state of ``template``'s
+    type, each tensor of the shape, dtype and device of the template's."""
+    names = set(template._fields)
+    if set(fields) != names:
+        raise ValueError(f"optimizer state fields {sorted(fields)} do not "
+                         f"match {type(template).__name__}'s {sorted(names)}")
+    out = {}
+    for name, like in template._asdict().items():
+        value = fields[name]
+        if isinstance(like, torch.Tensor):
+            t = torch.from_numpy(np.array(value))
+            if tuple(t.shape) != tuple(like.shape):
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                                 f"state {tuple(like.shape)}")
+            out[name] = t.to(device=like.device, dtype=like.dtype)
+        elif like is None or value is None:
+            if (like is None) != (value is None):
+                raise ValueError(f"{name} is None in only one of the file "
+                                 f"and the state")
+            out[name] = None
+        else:
+            out[name] = tensors_from_numpy(model, value, like)
+    return type(template)(**out)
 
 
 def static_weights_from_numpy(weights: np.ndarray,

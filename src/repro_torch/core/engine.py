@@ -295,6 +295,16 @@ class FederationEngine:
     def last_graph(self) -> Optional[graph_mod.CollaborationGraph]:
         return self.bus.last_graph
 
+    def attach_snapshots(self, store):
+        """Publish serving views of the per-client params into ``store``
+        (anything with ``publish(federation, t)``, normally a
+        ``repro_torch.serve.SnapshotStore``): once now, then after every
+        round (sync) or every wake and server fire (async). Returns the
+        store."""
+        self.publish_hooks.append(lambda t: store.publish(self.fed, t))
+        store.publish(self.fed, float(self.clock.now))
+        return store
+
     def _publish(self, t: float) -> None:
         """Call the publish hooks (``hook(t)``) after params or targets
         moved: every round (sync), every wake and server fire (async)."""
@@ -417,6 +427,7 @@ class AsyncFederationEngine:
     n_clients = FederationEngine.n_clients
     last_graph = FederationEngine.last_graph
     evaluate = FederationEngine.evaluate
+    attach_snapshots = FederationEngine.attach_snapshots
     _publish = FederationEngine._publish
 
     @classmethod

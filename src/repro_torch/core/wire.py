@@ -313,12 +313,9 @@ class TopK(Codec):
         vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
         vals, idx = vals[..., :k], idx[..., :k]
         # the tail of a near-complete top k is a rounding residue, so its
-        # summation order shows in the decoded unsent classes: sum left to
-        # right in fp32, as the reference does, the same on any device
-        total = vals[..., 0]
-        for j in range(1, k):
-            total = total + vals[..., j]
-        tail = torch.clamp(1.0 - total, 0.0, 1.0)
+        # summation order shows in the decoded unsent classes: sum in the
+        # reference's order, the same on any device
+        tail = torch.clamp(1.0 - _xla_row_sum(vals), 0.0, 1.0)
         idt = torch.int16 if c <= torch.iinfo(torch.int16).max \
             else torch.int32
         return Payload("topk", domain, tuple(x.shape),
@@ -339,6 +336,23 @@ class TopK(Codec):
         if payload.domain == "log":
             return torch.log(p)
         return p
+
+
+def _xla_row_sum(x: torch.Tensor, window: int = 32) -> torch.Tensor:
+    """fp32 sum over the last axis in the order XLA's CPU backend uses:
+    rows of up to ``window`` left to right; a longer row zero-padded to a
+    multiple of ``window`` (half the padding, rounded down, in front),
+    each window summed left to right, then the window sums reduced the
+    same way."""
+    n = x.shape[-1]
+    if n > window:
+        pad = -n % window
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, window)
+    total = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        total = total + x[..., j]
+    return _xla_row_sum(total, window) if n > window else total
 
 
 def _renorm_probs(x: torch.Tensor) -> torch.Tensor:

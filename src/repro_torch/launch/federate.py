@@ -21,6 +21,9 @@ Event clock (virtual-time async runtime):
 
 (with ``src`` on ``PYTHONPATH``). Prints per-eval accuracy, then a JSON
 summary. ``--device`` defaults to ``cuda`` and fails without a card.
+``--ckpt DIR`` saves the federation at the end as
+``DIR/step_<rounds>.msgpack``, a file the reference's
+``repro.checkpoint.restore_federation`` also reads.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import json
 import time
 from typing import Optional, Union
 
+from repro_torch.checkpoint import save_federation
 from repro_torch.core import (ArrivalProcess, AsyncFederationEngine,
                               BurstyArrivals, EveryKUploads,
                               FederationConfig, FederationEngine,
@@ -152,6 +156,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt", help="save the federation into this "
+                                   "directory at the end")
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be >= 1")
@@ -234,6 +240,10 @@ def main(argv=None) -> dict:
         summary["zoo"] = args.zoo
     if args.assignment:
         summary["assignment"] = args.assignment
+    if args.ckpt:
+        save_federation(args.ckpt, engine.fed, step=args.rounds,
+                        bus=engine.bus, clients=engine.clients)
+        summary["ckpt"] = f"{args.ckpt}/step_{args.rounds}.msgpack"
     print(json.dumps(summary, indent=2))
     return summary
 

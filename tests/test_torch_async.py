@@ -91,12 +91,30 @@ def _hold_payloads(eng):
 
 def run_both(protocol, *, arrivals=None, trigger=None, schedule=None,
              horizons=(4.0,), **config):
-    """One federation in both packages. ``protocol``, ``arrivals``,
-    ``trigger`` and ``schedule`` are functions of the package's core
-    module (``repro.core`` or ``repro_torch.core``), so each side builds
-    its own objects from the same arguments. With ``schedule`` the sync
-    engine runs ``CFG['rounds']`` rounds; otherwise the async engine runs
-    ``fit(until=h)`` for each horizon in turn."""
+    """One federation in both packages (``build_both``). With ``schedule``
+    the sync engine runs ``CFG['rounds']`` rounds; otherwise the async
+    engine runs ``fit(until=h)`` for each horizon in turn."""
+    r = build_both(protocol, arrivals=arrivals, trigger=trigger,
+                   schedule=schedule, **config)
+    jeng, teng = r["jeng"], r["teng"]
+    if schedule is not None:
+        r["jhist"], r["thist"] = jeng.fit(r["splits"]), teng.fit(r["psplits"])
+    else:
+        for h in horizons:
+            r["jhist"] = jeng.fit(r["splits"], until=h)
+        for h in horizons:
+            r["thist"] = teng.fit(r["psplits"], until=h)
+    return r
+
+
+def build_both(protocol, *, arrivals=None, trigger=None, schedule=None,
+               **config):
+    """One federation built in both packages, the port's with the
+    reference's initial params and batch draws. ``protocol``,
+    ``arrivals``, ``trigger`` and ``schedule`` are functions of the
+    package's core module (``repro.core`` or ``repro_torch.core``), so
+    each side builds its own objects from the same arguments; with
+    ``schedule`` the engines are the sync ones."""
     cfg = {**CFG, **config}
     sync = schedule is not None
     ds = jax_pad_like(samples_per_client=30, ref_size=30, length=24)
@@ -143,17 +161,11 @@ def run_both(protocol, *, arrivals=None, trigger=None, schedule=None,
     _record_fires(teng.bus, tfires)
     teng.publish_hooks.append(tpublished.append)
     deliveries = _hold_payloads(teng)
-    if sync:
-        jhist, thist = jeng.fit(splits), teng.fit(psplits)
-    else:
-        for h in horizons:
-            jhist = jeng.fit(splits, until=h)
-        for h in horizons:
-            thist = teng.fit(psplits, until=h)
-    return dict(jeng=jeng, teng=teng, jhist=jhist, thist=thist,
-                jlogits=jlogits, tlogits=tlogits, jfires=jfires,
-                tfires=tfires, deliveries=deliveries,
-                jpublished=jpublished, tpublished=tpublished)
+    return dict(jeng=jeng, teng=teng, splits=splits, psplits=psplits,
+                init_params=init_params, draws=draws, jlogits=jlogits,
+                tlogits=tlogits, jfires=jfires, tfires=tfires,
+                deliveries=deliveries, jpublished=jpublished,
+                tpublished=tpublished)
 
 
 def assert_same_edges(jf, tf):

@@ -88,18 +88,18 @@ def test_arrivals_match_reference(name):
 
 
 def _core_names(names, get):
-    """The reference's registered names defined by ``repro.core`` itself
-    (``repro.serve`` adds query arrival processes to the same registry
+    """The registered names a package's ``core`` defines itself (each
+    package's ``serve`` adds query arrival processes to the same registry
     when it is imported)."""
-    return tuple(n for n in names
-                 if get(n).__module__.startswith("repro.core."))
+    return tuple(n for n in names if get(n).__module__.startswith(
+        ("repro.core.", "repro_torch.core.")))
 
 
 def test_registries_and_coercion_match_reference():
     assert T.registered_schedules() == _core_names(J.registered_schedules(),
                                                    J.get_schedule)
-    assert T.registered_arrivals() == _core_names(J.registered_arrivals(),
-                                                  J.get_arrivals)
+    assert _core_names(T.registered_arrivals(), T.get_arrivals) == \
+        _core_names(J.registered_arrivals(), J.get_arrivals)
     assert T.registered_triggers() == _core_names(J.registered_triggers(),
                                                   J.get_trigger)
     for get, names in (("get_schedule", T.registered_schedules),
@@ -114,7 +114,7 @@ def test_registries_and_coercion_match_reference():
             str(getattr(J, names.__name__)()), str(names()))
     for name in T.registered_schedules():
         assert T.get_schedule(name).__name__ == J.get_schedule(name).__name__
-    for name in T.registered_arrivals():
+    for name in _core_names(T.registered_arrivals(), T.get_arrivals):
         assert T.get_arrivals(name).__name__ == J.get_arrivals(name).__name__
     for name in T.registered_triggers():
         assert T.get_trigger(name).__name__ == J.get_trigger(name).__name__

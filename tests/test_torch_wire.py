@@ -181,8 +181,8 @@ def test_server_bus_meters_int8_bytes_both_ways():
 #
 # Both encodes are byte for byte the reference's: the bf16 casts round to
 # nearest even in both frameworks, top-k keeps the lowest class index
-# first among ties, and the tail is summed left to right (XLA's CPU
-# backend reduces rows of up to 32 in order). The log domain's exp is
+# first among ties, and the tail is summed in XLA's CPU order (rows of up
+# to 32 left to right, longer rows in windows of 32). The log domain's exp is
 # each framework's own: the port's is fp64 rounded once to fp32, the
 # reference's XLA's fp32 polynomial, and they differ in the last bit. So
 # for the log domain the port encodes the reference's exp of the
@@ -216,6 +216,18 @@ WIRE_SPECS = ["dense16", "topk", "topk:1", "topk:3", "topk:32"]
 @pytest.mark.parametrize("shape", WIRE_SHAPES)
 @pytest.mark.parametrize("domain", ["log", "prob"])
 def test_dense16_and_topk_encode_is_byte_identical(spec, shape, domain):
+    _assert_encode_is_byte_identical(spec, shape, domain)
+
+
+@pytest.mark.parametrize("k", [48, 64])
+@pytest.mark.parametrize("domain", ["log", "prob"])
+def test_topk_long_tail_is_byte_identical(k, domain):
+    """k > 32 at C = 80: XLA's CPU backend sums a row longer than 32 in
+    zero-padded windows of 32, and the tail follows that order."""
+    _assert_encode_is_byte_identical(f"topk:{k}", (4, 30, 80), domain)
+
+
+def _assert_encode_is_byte_identical(spec, shape, domain):
     x = _with_ties(_messengers(shape, sum(shape) + len(spec), domain),
                    domain)
     want = jwire.encode(spec, jnp.asarray(x), domain=domain)
