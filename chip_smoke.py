@@ -136,6 +136,25 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     (seconds, MB); that file without ``div_cache``, restored: B1 rebuilds
     the cache, held against the plain ``pairwise_kl`` at phase 3's
     tolerance;
+20. the LM zoo's serving path (``repro_torch.launch.serve.serve``: prefill,
+    then greedy decode against the cache) at batch 4, prompt 64, decode
+    32, bf16 params drawn on the card from a seeded generator:
+    qwen2-0.5b, gemma3-1b (also with a 600-token prompt: its 512-slot
+    ring buffers wrap), mamba2-780m, stablelm-3b, musicgen-medium and
+    recurrentgemma-9b at full width, deepseek-67b and internvl2-76b
+    (over 80 GB) at their published widths with the depth cut to 4
+    layers, the cut printed. Each serves in fp32 and in bf16 (the same
+    params), each step's logits kept, no CUDA kernel of the port
+    launched; the decode is held against the teacher-forced ``forward``
+    in fp32 (within 1e-4 of the largest logit) and in bf16 (within a
+    fixed limit per case; the control, the forward with one token
+    swapped, must read above it; bf16's own drift, the bf16 forward
+    against the fp32 forward, is printed); the bf16 run timed after a
+    2-token warm-up: prefill s, decode ms/token back to back, one decode
+    step under the profiler (device ms, kernels, busy share) beside its bytes
+    bound (params + cache over 3.35 TB/s). qwen2-0.5b's fp32 twin: params
+    drawn on the CPU, 8 greedy tokens on the card equal the CPU's, logits
+    within 1e-4;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -157,6 +176,7 @@ lse (``chiprun_out/b4_against.json``; no result line).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -1932,6 +1952,224 @@ def checkpoint_phase(dev, inputs) -> dict:
     return out
 
 
+# phase 20: the LM zoo's serving path at the reference serve CLI's
+# defaults (launch/serve.py: batch 4, prompt 64, decode 32): the six
+# architectures that fit one card in bf16 at full width; deepseek-67b
+# (134.9 GB) and internvl2-76b (141.1 GB) at their published widths with
+# only the depth cut to LM_DEPTH_CUT layers (~11 GB each); gemma3-1b also
+# with a 600-token prompt, so its 512-slot ring buffers wrap while the
+# prefill is packed and again while decoding
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 64, 32
+LM_DEPTH_CUT = {"deepseek-67b": 4, "internvl2-76b": 4}
+LM_CASES = (("qwen2-0.5b", LM_PROMPT), ("gemma3-1b", LM_PROMPT),
+            ("gemma3-1b", 600), ("mamba2-780m", LM_PROMPT),
+            ("stablelm-3b", LM_PROMPT), ("musicgen-medium", LM_PROMPT),
+            ("recurrentgemma-9b", LM_PROMPT), ("deepseek-67b", LM_PROMPT),
+            ("internvl2-76b", LM_PROMPT))
+# decode against the teacher-forced forward, as a share of the largest
+# forward logit. fp32 within the CPU tests' 1e-4. bf16 within a fixed
+# limit per case, about twice its sound reading on the H100 (decode and
+# forward each round on their own; mamba2-780m's 48 SSD layers read 0.13,
+# as the reference's own bf16 decode drifts: tests/test_torch_lm_bf16.py)
+# and far under the control: the forward of the same tokens with the
+# first decoded one swapped (0.62-1.28), which must read above the limit
+LM_FP32_RTOL = 1e-4
+LM_BF16_RTOL = {("qwen2-0.5b", LM_PROMPT): 2e-2,
+                ("gemma3-1b", LM_PROMPT): 2e-2, ("gemma3-1b", 600): 3e-2,
+                ("mamba2-780m", LM_PROMPT): 0.25,
+                ("stablelm-3b", LM_PROMPT): 3.5e-2,
+                ("musicgen-medium", LM_PROMPT): 6e-2,
+                ("recurrentgemma-9b", LM_PROMPT): 2e-2,
+                ("deepseek-67b", LM_PROMPT): 1.5e-2,
+                ("internvl2-76b", LM_PROMPT): 1.5e-2}
+# qwen2-0.5b's fp32 twin: the card's greedy decode against the CPU's
+LM_TWIN_STEPS, LM_TWIN_RTOL = 8, 1e-4
+
+
+def lm_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest gap of ``got`` from ``want``, as a share of the largest
+    ``want``."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def lm_case(dev, arch: str, prompt_len: int) -> dict:
+    """``serve`` on one case in bf16 and in fp32 (the same params, cast):
+    each run's decode held against its own teacher-forced ``forward``;
+    the bf16 run timed (after a 2-token warm-up at its shapes), one of its
+    decode steps under the profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.frontends import frontend_dim
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_params)
+    cfg = get_config(arch)
+    if arch in LM_DEPTH_CUT:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH_CUT[arch])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    params = init_params(cfg, dev, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, prompt_len),
+                            generator=gen, dtype=torch.int32, device=dev)
+    embeds = None
+    if cfg.frontend is not None:
+        embeds = torch.randn((LM_BATCH, 8, frontend_dim(cfg.frontend)),
+                             generator=gen, device=dev).to(cfg.param_dtype)
+    cut = f" ({cfg.n_layers} layers)" if arch in LM_DEPTH_CUT else ""
+    label = f"{arch}{cut}, prompt {prompt_len}"
+    length = prompt_len + (0 if embeds is None else embeds.shape[1])
+    # serve's cache holds prompt + decode positions; a frontend's frames
+    # come first, so its last steps overwrite the last slot (as the
+    # reference's do): decode is held where the cache holds every position
+    held = min(LM_DECODE, prompt_len + LM_DECODE - length + 1)
+
+    def run(p, decode_len=LM_DECODE):
+        return serve(arch, batch=LM_BATCH, prompt_len=prompt_len,
+                     decode_len=decode_len, device=dev, params=p,
+                     prompts=prompts, embeds=embeds, cfg=cfg, verbose=False,
+                     keep_logits=True)
+
+    def teacher(p, c, toks):
+        full, _ = forward(p, c, tokens=torch.cat([prompts, toks[:, :-1]],
+                                                 dim=1), embeds=embeds)
+        return full[:, length - 1:length - 1 + held]
+
+    ops.reset_launch_counts()
+    p32 = tree_map(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+    r32 = run(p32)
+    fp32 = lm_gap(r32["logits"][:, :held], teacher(p32, cfg32,
+                                                   r32["tokens"]))
+    del r32
+    run(params, decode_len=2)
+    r16 = run(params)
+    got = r16["logits"][:, :held]
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
+    want = teacher(params, cfg, r16["tokens"])
+    bf16 = lm_gap(got, want)
+    # bf16's own drift: the bf16 forward against the fp32 forward of the
+    # same params and tokens (a reading, not a limit)
+    drift = lm_gap(want, teacher(p32, cfg32, r16["tokens"]))
+    del p32
+    swapped = r16["tokens"].clone()
+    swapped[:, 0] = (swapped[:, 0] + 1) % cfg.vocab_size
+    control = lm_gap(got, teacher(params, cfg, swapped))
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"{label}: a kernel launched {counts}")
+    limit = LM_BF16_RTOL[(arch, prompt_len)]
+    check(fp32 <= LM_FP32_RTOL,
+          f"{label}: fp32 decode is {fp32:.3e} off its forward")
+    check(bf16 <= limit, f"{label}: bf16 decode is {bf16:.3e} off its "
+                         f"forward (limit {limit:g})")
+    check(control > limit, f"{label}: the control (one token swapped) "
+                           f"reads {control:.3e}, within the limit {limit:g}")
+    cache = r16["cache"]
+    prof = device_breakdown(f"{label}: one decode step",
+                            lambda: decode_step(params, cfg,
+                                                r16["tokens"][:, -1:],
+                                                cache))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    ms_tok = r16["decode_s"] / (LM_DECODE - 1) * 1e3
+    print(f"  [{CARD}] {label}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, "
+          f"{param_bytes / 1e9:.3f} GB of bf16 params; prefill "
+          f"{r16['prefill_s']:.4f} s; decode {ms_tok:.3f} ms/token back "
+          f"to back; one step: "
+          f"device {prof['device_ms']} ms, {prof.get('n_kernels')} kernels, "
+          f"busy {prof.get('busy_share')}; bytes bound {bound_ms:.4f} ms "
+          f"(params + cache {cache_bytes / 1e6:.2f} MB over 3.35 TB/s); "
+          f"decode vs forward over {held} steps: bf16 {bf16:.3e} (limit "
+          f"{limit:g}; control {control:.3e}; bf16 forward vs fp32 "
+          f"{drift:.3e}), fp32 {fp32:.3e} (limit {LM_FP32_RTOL:g})")
+    out = {"label": label, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "param_gb": param_bytes / 1e9,
+           "cache_mb": cache_bytes / 1e6, "prefill_s": r16["prefill_s"],
+           "decode_ms_per_token": ms_tok,
+           "step_device_ms": prof["device_ms"],
+           "step_kernels": prof.get("n_kernels"),
+           "step_busy_share": prof.get("busy_share"),
+           "step_wall_ms": prof["wall_ms"], "bound_ms": bound_ms,
+           "held_steps": held, "bf16_err": bf16, "bf16_limit": limit,
+           "bf16_control": control, "bf16_forward_drift": drift,
+           "fp32_err": fp32, "launches": counts}
+    del params, r16, cache, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_twin(dev) -> dict:
+    """qwen2-0.5b at full width in fp32, params drawn on the CPU and
+    moved to the card: LM_TWIN_STEPS greedy tokens through ``serve`` on
+    both devices."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"),
+                              param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(21)
+    params = init_params(cfg, "cpu", gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, dtype=torch.int32)
+
+    def run(p, device):
+        return serve("qwen2-0.5b", reduced=False, batch=LM_BATCH,
+                     prompt_len=LM_PROMPT, decode_len=LM_TWIN_STEPS,
+                     device=device, params=p, prompts=prompts,
+                     verbose=False, keep_logits=True)
+
+    t0 = time.perf_counter()
+    cpu = run(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    card = run(tree_map(lambda t: t.to(dev), params), dev)
+    err = lm_gap(card["logits"].cpu(), cpu["logits"])
+    same = bool(torch.equal(card["tokens"].cpu(), cpu["tokens"]))
+    check(same, "qwen2-0.5b fp32: the card's greedy tokens differ from the "
+                "CPU's")
+    check(err <= LM_TWIN_RTOL, f"qwen2-0.5b fp32: card logits {err:.3e} "
+                               f"off the CPU's")
+    print(f"  [{CARD}] qwen2-0.5b fp32 twin ({LM_TWIN_STEPS} tokens, CPU "
+          f"run {cpu_s:.1f} s): tokens equal the CPU's; logits within "
+          f"{err:.3e} of the largest (limit {LM_TWIN_RTOL:g})")
+    return {"tokens_equal": same, "max_rel_err": err, "cpu_s": cpu_s}
+
+
+def lm_serving_phase(dev) -> dict:
+    """The LM zoo's serving path: each case through ``serve`` in bf16 and
+    fp32, held against its forward, timed, one step under the profiler;
+    the depth cuts printed; qwen2-0.5b's fp32 twin against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import greedy_sample
+    from repro_torch.models.transformer import init_params
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the fp32 holds need IEEE fp32 products")
+    # greedy ties go to the first maximum, as jnp.argmax's
+    ties = torch.zeros((LM_BATCH, 1, 151936), device=dev)
+    ties[:, :, [7, 4000, 151935]] = 1.0
+    check(bool((greedy_sample(ties) == 7).all()),
+          "greedy_sample on the card breaks a tie past the first maximum")
+    out = {"cases": []}
+    for arch, prompt_len in LM_CASES:
+        if arch in LM_DEPTH_CUT:
+            full = get_config(arch)
+            n = full.param_count(init_params(full, device="meta"))
+            print(f"  {arch}: {n * 2 / 1e9:.1f} GB of bf16 params at "
+                  f"{full.n_layers} layers do not fit one 80 GB card: its "
+                  f"published widths (d_model {full.d_model}, "
+                  f"{full.n_heads} heads, {full.n_kv_heads} kv, d_ff "
+                  f"{full.d_ff}, vocab {full.vocab_size}) run with the "
+                  f"depth cut to {LM_DEPTH_CUT[arch]} layers; a step's "
+                  f"share outside the layers (embedding, head, the host's "
+                  f"per-step work) is larger than at full depth")
+        out["cases"].append(lm_case(dev, arch, prompt_len))
+    out["qwen2_fp32_twin"] = lm_twin(dev)
+    return out
+
+
 def int8_wire(shape, dev, seed):
     """(q, scale, zp) of numpy-seeded log-softmax messengers, int8-encoded
     on the card by the port's codec."""
@@ -2663,6 +2901,12 @@ def main() -> int:
     print("[19] checkpoints")
     checkpoints = checkpoint_phase(dev, inputs)
 
+    print("[20] the LM zoo's serving path: prefill and greedy decode")
+    t0 = time.perf_counter()
+    lm_serving = lm_serving_phase(dev)
+    lm_serving["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 20 wall time {lm_serving['wall_s']:.1f} s")
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -2722,7 +2966,7 @@ def main() -> int:
          "async_federations": async_fed, "async_server": async_server,
          "zoo_federation": zoo_fed, "resnet_federation": resnet_fed,
          "serving": serving, "checkpoints": checkpoints,
-         "wall_s": time.perf_counter() - t_start},
+         "lm_serving": lm_serving, "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -25,6 +25,15 @@ optimizer state both ways: the port's lists aligned with
 params, the per-client step counter as it is. ``numpy_cohort_inputs``
 makes, from numpy seeds, the starting weights and batch draws that two
 runs of one federation (the card's and the CPU's) share.
+
+The LM zoo's trees (``repro_torch.models.transformer``) keep the
+reference's layout, so ``lm_tree_from_numpy``/``lm_tree_to_numpy``
+carry a param tree or a decode cache leaf for leaf. A bf16 leaf crosses
+as its bits: numpy has no bfloat16, and ``np.asarray`` of a JAX bf16
+array has the ``bfloat16`` dtype of ``ml_dtypes``, which the port does
+not import. It is recognised by its name and read through a ``uint16``
+view; the way back writes ``uint16`` arrays, which the reference's side
+views as bf16.
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch import Device, resolve_device
-from repro_torch.models.common import StackedCohort
+from repro_torch.models.common import StackedCohort, tree_map
 from repro_torch.models.mlp import CohortMLP
 
 
@@ -252,3 +261,34 @@ def numpy_cohort_inputs(families: Mapping[str, Callable],
             0, m, (n_c, batch))
 
     return init, draws
+
+
+def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)                  # an own, writable, C-ordered copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def lm_tree_from_numpy(tree, device: Device = None):
+    """The reference's LM param tree (``init_params``) or decode cache
+    (``prefill``, ``init_cache``; ``{"groups": {"pos{i}": ...}, "rem":
+    [...]}``), leaves as numpy, -> the port's tree of tensors on
+    ``device`` (None: the card), dtypes kept (int32 ``k_pos``/``pos``
+    too), bf16 bit for bit."""
+    dev = resolve_device(device)
+    return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
+
+
+def lm_tree_to_numpy(tree):
+    """The port's LM params or decode cache -> the reference's tree of
+    numpy arrays (bf16 leaves as ``uint16`` bits)."""
+    return tree_map(_leaf_to_numpy, tree)

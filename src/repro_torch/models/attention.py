@@ -1,11 +1,13 @@
-"""The GQA attention mixer, full-sequence path (train / prefill).
+"""The GQA attention mixer: full sequence (train / prefill) and one-token
+decode against a cache.
 
 Shapes: x (B, S, D); q (B, S, H, hd); k/v (B, S, KV, hd); weights
 ``wq (D, H, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (H, hd, D)``, the
 reference's layouts. Scores are divided by sqrt(hd), causally masked and
-soft-maxed in fp32. Sequences up to ``DIRECT_ATTN_MAX_SEQ`` take the
-masked-einsum path; the chunked online-softmax path for longer ones, MLA
-and decode against a cache are not ported.
+soft-maxed in fp32. Sequences up to ``DIRECT_ATTN_MAX_SEQ`` keys take the
+masked-einsum path, longer ones the chunked online softmax. Decode writes
+one slot of a full cache or of a ring buffer (``window`` > 0) in place.
+MLA (DeepSeek-V2) is declared but waits for the MoE/MLA slice.
 """
 from __future__ import annotations
 
@@ -16,8 +18,15 @@ import torch
 from repro_torch.models.common import (NEG_INF, Init, ModelConfig, Params,
                                        apply_rope, dense_init)
 
+# KV-block size for the chunked online-softmax path.
+KV_CHUNK = 1024
 # Sequences at or below this use the plain masked-einsum path.
 DIRECT_ATTN_MAX_SEQ = 4096
+# key position of an empty cache slot or a padded key: never <= a query's
+INT_MAX = torch.iinfo(torch.int32).max
+
+MLA_WAITS = ("MLA (DeepSeek-V2) is not ported yet: it comes with the "
+             "MoE/MLA slice")
 
 
 def init_attention(init: Init, cfg: ModelConfig) -> Params:
@@ -34,8 +43,23 @@ def init_attention(init: Init, cfg: ModelConfig) -> Params:
     return p
 
 
+def init_mla(init: Init, cfg: ModelConfig) -> Params:
+    raise NotImplementedError(MLA_WAITS)
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x, positions,
+                return_kv: bool = False):
+    raise NotImplementedError(MLA_WAITS)
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x, cache):
+    raise NotImplementedError(MLA_WAITS)
+
+
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q (B,Sq,H,hd), k (B,Sk,KV,hd) -> scores (B,KV,G,Sq,Sk), H = KV*G."""
+    """q (B,Sq,H,hd), k (B,Sk,KV,hd) -> scores (B,KV,G,Sq,Sk), H = KV*G.
+    fp32 out, as the reference's ``preferred_element_type``: bf16
+    operands are upcast (their products are exact in fp32)."""
     b, sq, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, sq, kvh, h // kvh, hd)
@@ -43,10 +67,18 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """probs (B,KV,G,Sq,Sk), v (B,Sk,KV,hd) -> (B,Sq,H,hd)."""
+    """probs (B,KV,G,Sq,Sk), v (B,Sk,KV,hd) -> (B,Sq,H,hd), fp32."""
     b, kvh, g, sq, _ = probs.shape
     o = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return o.reshape(b, sq, kvh * g, v.shape[-1])
+
+
+def _mask(q_pos, k_pos, window: int) -> torch.Tensor:
+    """(Sq, Sk): key k_pos visible from q_pos."""
+    mask = k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask = mask & (k_pos[None, :] > (q_pos[:, None] - window))
+    return mask
 
 
 def direct_attention(q, k, v, q_pos, k_pos, window: int = 0
@@ -54,21 +86,56 @@ def direct_attention(q, k, v, q_pos, k_pos, window: int = 0
     """Masked-einsum attention; fine up to a few thousand tokens."""
     hd = q.shape[-1]
     scores = _gqa_scores(q, k) / math.sqrt(hd)
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if window > 0:
-        mask = mask & (k_pos[None, :] > (q_pos[:, None] - window))
+    mask = _mask(q_pos, k_pos, window)
     scores = torch.where(mask[None, None, None], scores,
                          torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     return _gqa_out(probs, v).to(q.dtype)
 
 
+def chunked_attention(q, k, v, q_pos, k_pos, window: int = 0,
+                      chunk: int = KV_CHUNK) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (flash-style, a loop over
+    the chunks): never materializes (Sq, Sk). The last chunk is padded
+    with keys at position INT_MAX, which the causal mask drops."""
+    b, sq, h, hd = q.shape
+    vd = v.shape[-1]
+    sk = k.shape[1]
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = torch.nn.functional.pad(k_pos, (0, pad), value=INT_MAX)
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(hd)
+    m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, vd), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = _gqa_scores(q, k[:, sl]) * scale              # (B,KV,G,Sq,chunk)
+        mask = _mask(q_pos, k_pos[sl], window)
+        s = torch.where(mask[None, None, None], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)                      # rescale old acc
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = _gqa_out(p, v[:, sl])                         # (B,Sq,H,vd)
+        scale_o = alpha.permute(0, 3, 1, 2).reshape(b, sq, h)[..., None]
+        acc = acc * scale_o + o
+        m = m_new
+    denom = l.permute(0, 3, 1, 2).reshape(b, sq, h)[..., None]
+    return (acc / torch.clamp(denom, min=1e-30)).to(q.dtype)
+
+
 def attention_any(q, k, v, q_pos, k_pos, window: int = 0) -> torch.Tensor:
     if k.shape[1] <= DIRECT_ATTN_MAX_SEQ:
         return direct_attention(q, k, v, q_pos, k_pos, window)
-    raise NotImplementedError(
-        f"{k.shape[1]} keys: the chunked attention path for sequences "
-        f"over {DIRECT_ATTN_MAX_SEQ} tokens is not ported")
+    return chunked_attention(q, k, v, q_pos, k_pos, window)
 
 
 def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -86,8 +153,39 @@ def _qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """Full-sequence causal attention. positions: (S,) int32."""
+                 positions: torch.Tensor, window: int = 0,
+                 return_kv: bool = False):
+    """Full-sequence causal attention. positions: (S,) int32. With
+    ``return_kv`` also the roped keys and the values, (B,S,KV,hd) each."""
     q, k, v = _qkv(p, cfg, x, positions)
     o = attention_any(q, k, v, positions, positions, window)
-    return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
+                window: int = 0):
+    """One-token decode. x (B,1,D); cache {'k','v': (B,S,KV,hd),
+    'k_pos': (S,) int32, 'pos': () int32}, updated in place (its tensors
+    may be views of a stack over layer groups) and returned.
+
+    The new key goes to slot ``pos % S`` of a ring buffer (``window`` >
+    0, S = the window) and to slot ``min(pos, S - 1)`` of a full cache,
+    which past its capacity overwrites the last slot, as the reference
+    does. ``pos`` stays on the device: no host sync per layer."""
+    pos = cache["pos"]
+    positions = pos.reshape(1)
+    q, k1, v1 = _qkv(p, cfg, x, positions)
+    s_cache = cache["k"].shape[1]
+    slot = pos % s_cache if window > 0 else torch.clamp(pos, max=s_cache - 1)
+    slot = slot.reshape(1).long()
+    cache["k"].index_copy_(1, slot, k1.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v1.to(cache["v"].dtype))
+    cache["k_pos"].index_copy_(0, slot, positions)
+    o = direct_attention(q, cache["k"], cache["v"], positions,
+                         cache["k_pos"], window)
+    y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    pos.add_(1)                    # after every read of the old position
+    return y, cache

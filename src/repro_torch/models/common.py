@@ -15,9 +15,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Params = Dict[str, torch.Tensor]
@@ -29,12 +30,18 @@ Params = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's config for the assigned-architecture zoo, cut to
-    the fields the port's mixers read (the MoE, MLA, layer-pattern and
-    frontend fields belong to the LM zoo, not ported)."""
+    """The reference's config for the assigned-architecture zoo, field for
+    field: the federation's one-layer families and the LM zoo's
+    architectures (``repro_torch.configs``) both build it.
+
+    ``layer_pattern`` is the repeating unit of per-layer mixer types, e.g.
+    ``("local",) * 5 + ("global",)`` for gemma3's 5:1. Valid mixer types:
+    "global", "local", "mla", "ssd", "rec" ("mla" and the MoE FFN are
+    declared here but do not run yet).
+    """
 
     name: str
-    family: str                      # dense | ssm | hybrid
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,16 +52,32 @@ class ModelConfig:
     # attention
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
+    sliding_window: int = 0          # window for "local" layers (0 = unused)
+    layer_pattern: Tuple[str, ...] = ("global",)
+    # MoE
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    moe_top_k: int = 0
+    # MLA (DeepSeek-V2)
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 0           # decoupled rope dim per head
+    v_head_dim: int = 0
     # SSM (Mamba-2 / SSD)
     ssm_state: int = 0
     ssm_heads: int = 0
     ssm_expand: int = 2
     conv_width: int = 4
     ssm_chunk: int = 256
-    # RG-LRU
+    # RG-LRU (RecurrentGemma)
     lru_width: int = 0
+    # modality frontend stub ("vision" | "audio" | None)
+    frontend: Optional[str] = None
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     param_dtype: Any = torch.bfloat16
+    # citation for the assigned-architecture provenance
+    source: str = ""
 
     @property
     def hd(self) -> int:
@@ -63,32 +86,116 @@ class ModelConfig:
         return self.d_model // max(self.n_heads, 1)
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.layer_pattern)
+
+    @property
+    def n_remainder(self) -> int:
+        return self.n_layers - self.n_groups * len(self.layer_pattern)
+
+    @property
     def d_inner(self) -> int:
         """SSD inner width."""
         return self.ssm_expand * self.d_model
 
+    def param_count(self, params) -> int:
+        return sum(t.numel() for t in tree_leaves(params))
+
+    def active_params_per_token(self) -> int:
+        """Analytic N_active for 6·N·D roofline cross-checks."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        per_layer = 0
+        for kind in full_pattern(self):
+            if kind in ("global", "local"):
+                per_layer += d * self.n_heads * self.hd          # q
+                per_layer += 2 * d * self.n_kv_heads * self.hd   # k, v
+                per_layer += self.n_heads * self.hd * d          # o
+            elif kind == "mla":
+                r, qr = self.kv_lora_rank, self.q_lora_rank
+                rh, vh = self.rope_head_dim, self.v_head_dim or self.hd
+                per_layer += d * (r + rh)                     # kv down (+rope)
+                per_layer += r * self.n_heads * (self.hd + vh)  # kv up
+                if qr:
+                    per_layer += d * qr + qr * self.n_heads * (self.hd + rh)
+                else:
+                    per_layer += d * self.n_heads * (self.hd + rh)
+                per_layer += self.n_heads * vh * d              # o
+            elif kind == "ssd":
+                di = self.d_inner
+                per_layer += d * (2 * di + 2 * self.ssm_state
+                                  + self.ssm_heads)
+                per_layer += di * d
+            elif kind == "rec":
+                w = self.lru_width or d
+                per_layer += 2 * d * w + w * d + 2 * w
+            # ffn (except pure ssd layers which have none in mamba2)
+            if kind != "ssd" or self.d_ff > 0:
+                if self.is_moe:
+                    active_e = self.moe_top_k + self.n_shared_experts
+                    per_layer += active_e * 3 * d * f
+                elif self.d_ff > 0:
+                    per_layer += 3 * d * f
+        return per_layer + 2 * v * d  # embed + head
+
+
+def full_pattern(cfg: ModelConfig) -> List[str]:
+    """Every layer's mixer kind, in stack order."""
+    pat = list(cfg.layer_pattern) * cfg.n_groups
+    return pat + list(cfg.layer_pattern)[: cfg.n_remainder]
+
 
 # ---------------------------------------------------------------------------
-# Initializers (stacked: every draw carries the client axis first)
+# Param trees (nested dicts and lists of tensors, the reference's pytrees)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree):
+    """``fn`` applied to every leaf of nested dicts and lists."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> List:
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# Initializers (every draw carries the Init's leading axis, if it has one)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Init:
-    """Where a cohort's stacked params are drawn: ``n_clients`` rows, on
-    ``device``, from ``generator`` (None: torch's default)."""
-    n_clients: int
+    """Where params are drawn: on ``device``, from ``generator`` (None:
+    torch's default), each draw stacked on a leading axis of
+    ``n_clients`` rows (a cohort's clients, or the LM stack's layer
+    groups), or without one when ``n_clients`` is None (one model)."""
+    n_clients: Optional[int]
     device: torch.device
     generator: Optional[torch.Generator] = None
 
+    def shape(self, shape) -> tuple:
+        lead = () if self.n_clients is None else (self.n_clients,)
+        return (*lead, *shape)
+
     def normal(self, shape, scale: float, dtype=torch.float32
                ) -> torch.Tensor:
-        w = torch.randn((self.n_clients, *shape), generator=self.generator,
+        w = torch.randn(self.shape(shape), generator=self.generator,
                         dtype=torch.float32, device=self.device)
         return (w * scale).to(dtype)
 
     def full(self, shape, value: float, dtype=torch.float32
              ) -> torch.Tensor:
-        return torch.full((self.n_clients, *shape), value, dtype=dtype,
+        return torch.full(self.shape(shape), value, dtype=dtype,
                           device=self.device)
 
 
@@ -97,6 +204,14 @@ def dense_init(init: Init, shape, dtype=torch.float32,
     """N(0, 1/fan_in) weights, fan_in defaulting to ``shape[0]``."""
     fan = fan_in if fan_in is not None else shape[0]
     return init.normal(shape, 1.0 / math.sqrt(max(fan, 1)), dtype)
+
+
+def embed_init(init: Init, shape, dtype) -> torch.Tensor:
+    return init.normal(shape, 0.02, dtype)
+
+
+def init_rmsnorm(init: Init, d: int, dtype) -> Params:
+    return {"scale": init.full((d,), 1.0, dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -110,6 +225,10 @@ def rmsnorm(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(dt)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ multiplicatively and projected back to D. The recurrence
 ``h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)`` runs as a loop over
 the sequence; the reference's associative scan adds the same terms in a
 tree, so the two agree to fp32 rounding, not bit for bit. The gates are
-block-diagonal ``(nb, wb, wb)``, as in the reference. The one-token
-decode and its cache are not ported.
+block-diagonal ``(nb, wb, wb)``, as in the reference. Decode is one
+step of the recurrence against a cache ``{'state': (B,W) fp32,
+'conv': (B,W-1,W)}``.
 """
 from __future__ import annotations
 
@@ -48,16 +49,19 @@ def init_rglru(init: Init, cfg: ModelConfig) -> Params:
         # Λ so that a = sigmoid(Λ) lies in [0.9, 0.999] (Griffin's init)
         "lam": torch.linspace(2.2, 6.9, w, dtype=torch.float32,
                               device=init.device).expand(
-                                  init.n_clients, w).clone(),
+                                  init.shape((w,))).clone(),
         "w_out": dense_init(init, (w, d), dt, fan_in=w),
     }
 
 
-def _conv(p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv of width W over u (B,S,W), zero history."""
+def _conv(p: Params, u: torch.Tensor,
+          prior: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise causal conv of width W over u (B,S,W); ``prior``
+    (B,W-1,W) is the history before u (None: zeros)."""
     w = p["conv_w"]
     width, s = w.shape[0], u.shape[1]
-    up = F.pad(u, (0, 0, width - 1, 0))
+    up = (F.pad(u, (0, 0, width - 1, 0)) if prior is None
+          else torch.cat([prior, u], dim=1))
     out = up[:, 0:s, :] * w[0]
     for i in range(1, width):
         out = out + up[:, i:i + s, :] * w[i]
@@ -90,14 +94,48 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def rglru_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
-                  ) -> torch.Tensor:
-    """Full-sequence recurrent block. x (B,S,D)."""
+def rglru_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  return_state: bool = False):
+    """Full-sequence recurrent block. x (B,S,D). With ``return_state``
+    also the decode cache: the last step's state and the recurrent
+    branch's last W-1 inputs to the conv."""
     # jax.nn.gelu defaults to the tanh approximation
     y_gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_y"]).float(),
                     approximate="tanh")
-    xr = _conv(p, torch.einsum("bsd,dw->bsw", x, p["w_x"]))
-    a, b = _gates(p, xr)
+    conv_in = torch.einsum("bsd,dw->bsw", x, p["w_x"])
+    a, b = _gates(p, _conv(p, conv_in))
     h = rglru_scan(a, b)                                    # (B,S,W) fp32
     merged = (h * y_gate).to(x.dtype)
-    return torch.einsum("bsw,wd->bsd", merged, p["w_out"])
+    out = torch.einsum("bsw,wd->bsd", merged, p["w_out"])
+    if return_state:
+        return out, {"state": h[:, -1, :].clone(),
+                     "conv": conv_in[:, -(cfg.conv_width - 1):, :].clone()}
+    return out
+
+
+def rglru_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 cache: Params):
+    """One-token step. x (B,1,D); cache {'state': (B,W) fp32,
+    'conv': (B,W-1,W)}, updated in place and returned."""
+    y_gate = F.gelu(torch.einsum("bsd,dw->bsw", x, p["w_y"]).float(),
+                    approximate="tanh")
+    xr = torch.einsum("bsd,dw->bsw", x, p["w_x"])           # (B,1,W)
+    new_conv = torch.cat([cache["conv"][:, 1:], xr], dim=1)
+    a, b = _gates(p, _conv(p, xr, prior=cache["conv"]))     # (B,1,W)
+    h = a[:, 0] * cache["state"] + b[:, 0]                  # (B,W)
+    merged = (h[:, None, :] * y_gate).to(x.dtype)
+    # fp32 accumulation, one rounding to x's dtype: as ssm.ssd_decode's
+    out = torch.einsum("bsw,wd->bsd", merged, p["w_out"])
+    cache["state"].copy_(h)
+    cache["conv"].copy_(new_conv)
+    return out, cache
+
+
+def rglru_init_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Params:
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "state": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                            device=device),
+    }

@@ -5,7 +5,8 @@ Within a chunk the SSD output is an attention-like quadratic product;
 across chunks a small recurrent state is handed on (a loop over the
 chunks). Single B/C group, scalar-per-head A. The in-projection stays
 the reference's fused ``w_in (D, 2*di + 2*N + H)``, split after the
-product. The one-token decode and its cache are not ported.
+product. Decode is the constant-memory recurrence against a cache
+``{'state': (B,H,P,N) fp32, 'conv': (B,W-1,C)}``.
 """
 from __future__ import annotations
 
@@ -57,11 +58,14 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor,
     return yf * torch.rsqrt(var + eps) * p["norm_scale"].float()
 
 
-def _causal_conv(p: Params, u: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv of width W over u (B,S,C), zero history."""
+def _causal_conv(p: Params, u: torch.Tensor,
+                 prior: torch.Tensor = None) -> torch.Tensor:
+    """Depthwise causal conv of width W over u (B,S,C); ``prior``
+    (B,W-1,C) is the history before u (None: zeros)."""
     w = p["conv_w"]                                         # (W, C)
     width, s = w.shape[0], u.shape[1]
-    up = F.pad(u, (0, 0, width - 1, 0))
+    up = (F.pad(u, (0, 0, width - 1, 0)) if prior is None
+          else torch.cat([prior, u], dim=1))
     out = up[:, 0:s, :] * w[0]
     for i in range(1, width):
         out = out + up[:, i:i + s, :] * w[i]
@@ -132,12 +136,16 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, carry
 
 
-def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
-                ) -> torch.Tensor:
-    """Full-sequence Mamba-2 mixer. x (B,S,D) -> (B,S,D)."""
+def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                return_state: bool = False):
+    """Full-sequence Mamba-2 mixer. x (B,S,D) -> (B,S,D). With
+    ``return_state`` also the decode cache after the last token: the
+    final SSM state (the padded tail of the last chunk has dt = 0, so it
+    leaves the state as it was) and the conv input's last W-1 rows."""
     di, h, ph, n = _dims(cfg)
     z, xin, b_, c_, dt_raw = _split_in(p, cfg, x)
-    conv_out = _causal_conv(p, torch.cat([xin, b_, c_], dim=-1))
+    conv_in = torch.cat([xin, b_, c_], dim=-1)
+    conv_out = _causal_conv(p, conv_in)
     xin, b_, c_ = (conv_out[..., :di], conv_out[..., di:di + n],
                    conv_out[..., di + n:])
     # torch's softplus returns its input above 20, where log1p(exp(-x))
@@ -146,8 +154,54 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     xh = xin.reshape(*xin.shape[:2], h, ph)
-    y, _ = ssd_scan(xh, dt, a, b_, c_, cfg.ssm_chunk)
+    y, state = ssd_scan(xh, dt, a, b_, c_, cfg.ssm_chunk)
     y = y + p["d_skip"][:, None] * xh.float()
     y = y.reshape(*x.shape[:2], di)
     y = _gated_norm(p, y, z, cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"])
+    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"])
+    if return_state:
+        conv_tail = conv_in[:, -(cfg.conv_width - 1):, :].clone()
+        return out, {"state": state, "conv": conv_tail}
+    return out
+
+
+def ssd_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params):
+    """One-token recurrent step. x (B,1,D); cache {'state': (B,H,P,N),
+    'conv': (B,W-1,C)}, updated in place and returned."""
+    di, h, ph, n = _dims(cfg)
+    z, xin, b_, c_, dt_raw = _split_in(p, cfg, x)           # all (B,1,.)
+    conv_in = torch.cat([xin, b_, c_], dim=-1)              # (B,1,C)
+    conv_out = _causal_conv(p, conv_in, prior=cache["conv"])
+    new_conv = torch.cat([cache["conv"][:, 1:], conv_in], dim=1)
+    xin, b_, c_ = (conv_out[..., :di], conv_out[..., di:di + n],
+                   conv_out[..., di + n:])
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])[:, 0]    # (B,H)
+    a = -torch.exp(p["a_log"])
+    xh = xin[:, 0].reshape(-1, h, ph).float()               # (B,H,P)
+    bv = b_[:, 0].float()                                   # (B,N)
+    cv = c_[:, 0].float()
+    decay = torch.exp(dt * a)                               # (B,H)
+    dx = xh * dt[..., None]                                 # (B,H,P)
+    state = (cache["state"] * decay[..., None, None]
+             + torch.einsum("bhp,bn->bhpn", dx, bv))
+    y = torch.einsum("bhpn,bn->bhp", state, cv) + p["d_skip"][:, None] * xh
+    y = _gated_norm(p, y.reshape(x.shape[0], 1, di), z, cfg.norm_eps)
+    # the reference accumulates in fp32, then casts to x's dtype; torch's
+    # bf16 matmul accumulates in fp32 and rounds its output once, the same
+    # (cuBLAS may reduce split-K partials in bf16 unless
+    # allow_bf16_reduced_precision_reduction is off)
+    out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"])
+    cache["state"].copy_(state)
+    cache["conv"].copy_(new_conv)
+    return out, cache
+
+
+def ssd_init_cache(cfg: ModelConfig, batch: int, dtype,
+                   device=None) -> Params:
+    di, h, ph, n = _dims(cfg)
+    return {
+        "state": torch.zeros((batch, h, ph, n), dtype=torch.float32,
+                             device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, di + 2 * n),
+                            dtype=dtype, device=device),
+    }

@@ -1,0 +1,265 @@
+"""The layer-group decoder stack for every assigned architecture but the
+MoE and MLA ones.
+
+Params keep the reference's tree: per-position layer params stacked over
+the ``cfg.n_groups`` repeats of ``cfg.layer_pattern`` under
+``groups/pos{i}``, plus a ``rem`` list for the ``n_layers % |pattern|``
+remainder layers. The reference scans over the groups; here a Python
+loop runs each group's slice. Caches share the layout (``cache.py``).
+
+Three entry points:
+  forward(...)      full-sequence logits
+  prefill(...)      full-sequence logits + a primed decode cache
+  decode_step(...)  one token against the cache, updated in place
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import Device, resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.cache import full_kv_to_cache
+from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
+                                       embed_init, init_rmsnorm, rmsnorm,
+                                       tree_map)
+from repro_torch.models.frontends import frontend_dim
+
+
+# ---------------------------------------------------------------------------
+# per-layer init / apply
+# ---------------------------------------------------------------------------
+
+def init_layer(init: Init, cfg: ModelConfig, kind: str) -> Params:
+    p: Dict[str, Any] = {"norm1": init_rmsnorm(init, cfg.d_model,
+                                               cfg.param_dtype)}
+    if kind in ("global", "local"):
+        p["mixer"] = attn.init_attention(init, cfg)
+    elif kind == "mla":
+        p["mixer"] = attn.init_mla(init, cfg)
+    elif kind == "ssd":
+        p["mixer"] = ssm_mod.init_ssd(init, cfg)
+    elif kind == "rec":
+        p["mixer"] = rglru_mod.init_rglru(init, cfg)
+    else:
+        raise ValueError(f"unknown mixer kind {kind!r}")
+    if cfg.d_ff > 0:
+        p["norm2"] = init_rmsnorm(init, cfg.d_model, cfg.param_dtype)
+        p["ffn"] = (ffn_mod.init_moe(init, cfg) if cfg.is_moe
+                    else ffn_mod.init_dense_ffn(init, cfg))
+    return p
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.sliding_window if kind == "local" else 0
+
+
+def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               decode: bool) -> torch.Tensor:
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        y = (ffn_mod.moe_decode(p["ffn"], cfg, h) if decode
+             else ffn_mod.moe_forward(p["ffn"], cfg, h))
+    else:
+        y = ffn_mod.dense_ffn(p["ffn"], h)
+    return x + y
+
+
+def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                positions: torch.Tensor, cache_seq: int = 0):
+    """Full-sequence layer. Returns (x, cache or None): the layer's decode
+    cache of capacity ``cache_seq`` when that is > 0."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    want = cache_seq > 0
+    cache = None
+    if kind in ("global", "local"):
+        y = attn.attn_forward(p["mixer"], cfg, h, positions,
+                              _window(cfg, kind), return_kv=want)
+        if want:
+            y, (k, v) = y
+            cache = full_kv_to_cache(k, v, cache_seq, _window(cfg, kind))
+    elif kind == "mla":
+        y = attn.mla_forward(p["mixer"], cfg, h, positions, return_kv=want)
+    elif kind == "ssd":
+        y = ssm_mod.ssd_forward(p["mixer"], cfg, h, return_state=want)
+    elif kind == "rec":
+        y = rglru_mod.rglru_forward(p["mixer"], cfg, h, return_state=want)
+    else:
+        raise ValueError(kind)
+    if want and cache is None:
+        y, cache = y
+    x = x + y
+    if cfg.d_ff > 0:
+        x = _apply_ffn(p, cfg, x, decode=False)
+    return x, cache
+
+
+def apply_layer_decode(p: Params, cfg: ModelConfig, kind: str,
+                       x: torch.Tensor, cache: Params) -> torch.Tensor:
+    """One-token layer step; updates ``cache`` in place."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if kind in ("global", "local"):
+        y, _ = attn.attn_decode(p["mixer"], cfg, h, cache, _window(cfg, kind))
+    elif kind == "mla":
+        y, _ = attn.mla_decode(p["mixer"], cfg, h, cache)
+    elif kind == "ssd":
+        y, _ = ssm_mod.ssd_decode(p["mixer"], cfg, h, cache)
+    elif kind == "rec":
+        y, _ = rglru_mod.rglru_decode(p["mixer"], cfg, h, cache)
+    else:
+        raise ValueError(kind)
+    x = x + y
+    if cfg.d_ff > 0:
+        x = _apply_ffn(p, cfg, x, decode=True)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# whole-stack init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, device: Device = None,
+                generator: Optional[torch.Generator] = None) -> Params:
+    """One model's params on ``device`` (None: the card), drawn from
+    ``generator``: the reference's initializers and tree, not its draws
+    (threefry); the tests carry the reference's own params across
+    (``repro_torch.convert.lm_tree_from_numpy``)."""
+    dev = resolve_device(device)
+    one = Init(None, dev, generator)
+    p: Dict[str, Any] = {
+        "embed": embed_init(one, (cfg.vocab_size, cfg.d_model),
+                            cfg.param_dtype),
+        "final_norm": init_rmsnorm(one, cfg.d_model, cfg.param_dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(one, (cfg.d_model, cfg.vocab_size),
+                                  cfg.param_dtype)
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init(
+            one, (frontend_dim(cfg.frontend), cfg.d_model), cfg.param_dtype)
+    stacked = Init(cfg.n_groups, dev, generator)
+    p["groups"] = {f"pos{i}": init_layer(stacked, cfg, kind)
+                   for i, kind in enumerate(cfg.layer_pattern)}
+    p["rem"] = [init_layer(one, cfg, cfg.layer_pattern[i])
+                for i in range(cfg.n_remainder)]
+    return p
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params: Params, cfg: ModelConfig,
+                 tokens: Optional[torch.Tensor],
+                 embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    parts = []
+    if embeds is not None:
+        parts.append(torch.einsum("bse,ed->bsd", embeds.to(cfg.param_dtype),
+                                  params["frontend_proj"]))
+    if tokens is not None:
+        parts.append(params["embed"][tokens])
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    # sqrt(d_model) in fp32, rounded to x's dtype before the multiply (the
+    # reference's order: in bf16, sqrt(896) is 29.875); a Python scalar,
+    # so no host-to-device copy (and sync) per step
+    scale = torch.tensor(np.sqrt(np.float32(cfg.d_model))).to(x.dtype)
+    return x * float(scale)
+
+
+def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    """fp32 logits (B,S,V). The reference's bf16 head product returns fp32
+    (``preferred_element_type``); here both operands are upcast, so a bf16
+    head is copied to fp32 on every call (qwen2-0.5b's tied 151936 x 896
+    head: 545 MB written and read again a decode step)."""
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(x.float(), head.float())
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _group(tree, g: int):
+    """Group ``g``'s slice of a tree stacked over groups (views)."""
+    return tree_map(lambda t: t[g], tree)
+
+
+def _stack(trees: List) -> Params:
+    if not trees:
+        return {}
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
+               positions: torch.Tensor, cache_seq: int):
+    """Every layer over the full sequence: (x, group caches, rem caches)."""
+    pattern = cfg.layer_pattern
+    group_caches: List[Params] = []
+    for g in range(cfg.n_groups):
+        gp = _group(params["groups"], g)
+        caches = {}
+        for i, kind in enumerate(pattern):
+            x, caches[f"pos{i}"] = apply_layer(gp[f"pos{i}"], cfg, kind, x,
+                                               positions, cache_seq)
+        group_caches.append(caches)
+    rem_caches = []
+    for i, p in enumerate(params["rem"]):
+        x, c = apply_layer(p, cfg, pattern[i], x, positions, cache_seq)
+        rem_caches.append(c)
+    return x, group_caches, rem_caches
+
+
+def forward(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Returns (logits (B,S,V) fp32, aux loss): the aux loss is the MoE
+    load-balance term, 0 for the architectures the port runs."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    if positions is None:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+    x, _, _ = _run_stack(params, cfg, x, positions, 0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(params, cfg, x), aux
+
+
+def prefill(params: Params, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            cache_seq: int = 0):
+    """Full-sequence forward that also primes a decode cache of capacity
+    ``cache_seq`` (>= prompt length). Returns (logits, cache)."""
+    x = embed_inputs(params, cfg, tokens, embeds)
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    x, group_caches, rem = _run_stack(params, cfg, x, positions,
+                                      max(cache_seq, s))
+    cache = {"groups": _stack(group_caches), "rem": rem}
+    return lm_logits(params, cfg, x), cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params):
+    """token (B,1) int -> (logits (B,1,V) fp32, cache). The cache is
+    updated in place and returned: the reference's step returns a new
+    one, and a caller that needs the old cache keeps a copy."""
+    x = embed_inputs(params, cfg, token, None)
+    pattern = cfg.layer_pattern
+    for g in range(cfg.n_groups):
+        gp, gc = _group(params["groups"], g), _group(cache["groups"], g)
+        for i, kind in enumerate(pattern):
+            x = apply_layer_decode(gp[f"pos{i}"], cfg, kind, x,
+                                   gc[f"pos{i}"])
+    for i, p in enumerate(params["rem"]):
+        x = apply_layer_decode(p, cfg, pattern[i], x, cache["rem"][i])
+    return lm_logits(params, cfg, x), cache
