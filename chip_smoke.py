@@ -155,6 +155,20 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     bound (params + cache over 3.35 TB/s). qwen2-0.5b's fp32 twin: params
     drawn on the CPU, 8 greedy tokens on the card equal the CPU's, logits
     within 1e-4;
+21. MoE and MLA serving, as phase 20 serves its cases: mixtral-8x7b
+    (8 experts, top 2) cut to 4 of 32 layers and deepseek-v2-236b (MLA,
+    160 routed experts, top 6, 2 shared) cut to 2 of 60, at their
+    published widths, the cuts printed; the teacher-forced forward on
+    the dropless MoE path (GShard drops choices at these shapes); the
+    routing decisions where decode and the teacher disagree, per dtype;
+    beside the all-params bound, the step's bytes bound over the experts
+    it routes to (each once), the embedding's rows of its tokens, the
+    rest of the params and the cache. The reduced configs' fp32 twins
+    (mixtral-smoke, dsv2-smoke; params drawn on the CPU): 8 greedy
+    tokens, every routing decision's experts (``torch.sort`` and
+    ``argsort`` on the card against the CPU's), the logits within 1e-4,
+    and the GShard forward's logits and aux loss, card against CPU; no
+    kernel of the port launched;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -1960,7 +1974,10 @@ def checkpoint_phase(dev, inputs) -> dict:
 # with a 600-token prompt, so its 512-slot ring buffers wrap while the
 # prefill is packed and again while decoding
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 64, 32
-LM_DEPTH_CUT = {"deepseek-67b": 4, "internvl2-76b": 4}
+LM_DEPTH_CUT = {"deepseek-67b": 4, "internvl2-76b": 4,
+                # phase 21: 93.4 and 478.7 GB of bf16 params at full
+                # depth; the phase holds bf16 and an fp32 copy (3x)
+                "mixtral-8x7b": 4, "deepseek-v2-236b": 2}
 LM_CASES = (("qwen2-0.5b", LM_PROMPT), ("gemma3-1b", LM_PROMPT),
             ("gemma3-1b", 600), ("mamba2-780m", LM_PROMPT),
             ("stablelm-3b", LM_PROMPT), ("musicgen-medium", LM_PROMPT),
@@ -1981,9 +1998,21 @@ LM_BF16_RTOL = {("qwen2-0.5b", LM_PROMPT): 2e-2,
                 ("musicgen-medium", LM_PROMPT): 6e-2,
                 ("recurrentgemma-9b", LM_PROMPT): 2e-2,
                 ("deepseek-67b", LM_PROMPT): 1.5e-2,
-                ("internvl2-76b", LM_PROMPT): 1.5e-2}
+                ("internvl2-76b", LM_PROMPT): 1.5e-2,
+                # phase 21: bf16 rounding flips experts at near ties (4 of
+                # 496 and 6 of 248 decode decisions on the H100), each
+                # moving its row's later logits by an expert's share: the
+                # whole gap reads 0.442 and 0.259 against controls of 1.22
+                # and 1.33 ...
+                ("mixtral-8x7b", LM_PROMPT): 0.9,
+                ("deepseek-v2-236b", LM_PROMPT): 0.5}
+# ... so the steps before a row's first flip are also held on their own,
+# to about twice their reading (1.35e-2 and 1.12e-2; controls 1.18, 1.26)
+LM_BF16_CLEAN_RTOL = {"mixtral-8x7b": 3e-2, "deepseek-v2-236b": 2.5e-2}
 # qwen2-0.5b's fp32 twin: the card's greedy decode against the CPU's
 LM_TWIN_STEPS, LM_TWIN_RTOL = 8, 1e-4
+# phase 21: the two MoE architectures, at their widths with the depth cut
+MOE_CASES = ("mixtral-8x7b", "deepseek-v2-236b")
 
 
 def lm_gap(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1992,11 +2021,87 @@ def lm_gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert indices of every MoE routing decision made inside the
+    block, in call order: ``repro_torch.models.ffn.route`` wrapped (the
+    MoE paths look it up at each call), no sync added."""
+    from repro_torch.models import ffn
+    seen, plain = [], ffn.route
+
+    def route(p, cfg, x):
+        out = plain(p, cfg, x)
+        seen.append(out[1])
+        return out
+
+    ffn.route = route
+    try:
+        yield seen
+    finally:
+        ffn.route = plain
+
+
+def routing_disagreements(served, taught, n_layers: int, length: int):
+    """Where a ``serve`` run's experts differ from the teacher-forced
+    forward's at the same position: ``served`` the run's routes (the
+    prefill's layers, then each decode step's), ``taught`` the forward's,
+    one per layer. Returns the decode decisions that differ, the decode
+    decisions compared, the prefill's (row, position) pairs that differ
+    at some layer, and each row's first position that differs at some
+    layer (the sequence's length where none does): a flipped expert
+    moves that row's later logits by a whole expert's share."""
+    steps = len(served) // n_layers - 1
+    rows = served[0].shape[0]
+    differs = torch.zeros((rows, length + steps), dtype=torch.bool,
+                          device=served[0].device)
+
+    def other(a, b):
+        return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+    decode = 0
+    for layer in range(n_layers):
+        differs[:, :length] |= other(served[layer],
+                                     taught[layer][:, :length])
+        for j in range(steps):
+            d = other(served[(j + 1) * n_layers + layer][:, 0],
+                      taught[layer][:, length + j])
+            differs[:, length + j] |= d
+            decode += int(d.sum())
+    at = torch.arange(length + steps, device=differs.device)
+    first = torch.where(differs, at, length + steps).amin(dim=1)
+    return {"differ": decode, "decisions": steps * n_layers * rows,
+            "prefill_differ": int(differs[:, :length].sum()),
+            "first": first}
+
+
+def routed_bytes(params, cfg, step_routes, cache_bytes: int) -> tuple:
+    """The bytes one decode step must move when it reads only the experts
+    it routes to (each once, however many rows chose it), the embedding's
+    rows of the step's tokens and everything else once, plus the cache;
+    and the routed experts per layer."""
+    from repro_torch.models.common import tree_leaves
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    ffns = ([params["groups"][k]["ffn"] for k in params["groups"]]
+            + [p["ffn"] for p in params["rem"]])
+    experts = [f[w] for f in ffns for w in ("w_gate", "w_up", "w_down")]
+    total -= sum(t.numel() * t.element_size() for t in experts)
+    embed = params["embed"]
+    if not cfg.tie_embeddings:
+        total -= (embed.shape[0] - LM_BATCH) * embed.shape[1] \
+            * embed.element_size()
+    per_expert = 3 * cfg.d_model * cfg.d_ff * embed.element_size()
+    routed = [int(torch.unique(idx).numel()) for idx in step_routes]
+    return total + sum(routed) * per_expert + cache_bytes, routed
+
+
 def lm_case(dev, arch: str, prompt_len: int) -> dict:
     """``serve`` on one case in bf16 and in fp32 (the same params, cast):
-    each run's decode held against its own teacher-forced ``forward``;
-    the bf16 run timed (after a 2-token warm-up at its shapes), one of its
-    decode steps under the profiler."""
+    each run's decode held against its own teacher-forced ``forward``
+    (the MoE FFN on the dropless path: GShard drops choices at these
+    shapes); the bf16 run timed (after a 2-token warm-up at its shapes),
+    one of its decode steps under the profiler. With experts, also the
+    routing decisions where decode and the teacher disagree, and the
+    step's bytes bound over the experts it routes to."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
@@ -2031,29 +2136,53 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
 
     def teacher(p, c, toks):
         full, _ = forward(p, c, tokens=torch.cat([prompts, toks[:, :-1]],
-                                                 dim=1), embeds=embeds)
+                                                 dim=1), embeds=embeds,
+                          moe_path="dropless")
         return full[:, length - 1:length - 1 + held]
+
+    def served_and_taught(p, c):
+        """A serve run, its teacher-forced logits, and (with experts)
+        their routing disagreements."""
+        with recorded_routes() as served:
+            r = run(p)
+        with recorded_routes() as taught:
+            want = teacher(p, c, r["tokens"])
+        if not c.is_moe:
+            return r, want, None
+        return r, want, routing_disagreements(served, taught, c.n_layers,
+                                              length)
 
     ops.reset_launch_counts()
     p32 = tree_map(lambda t: t.float(), params)
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
-    r32 = run(p32)
-    fp32 = lm_gap(r32["logits"][:, :held], teacher(p32, cfg32,
-                                                   r32["tokens"]))
+    r32, want, routes32 = served_and_taught(p32, cfg32)
+    fp32 = lm_gap(r32["logits"][:, :held], want)
     del r32
     run(params, decode_len=2)
-    r16 = run(params)
+    r16, want, routes16 = served_and_taught(params, cfg)
+    routes = {"fp32": routes32, "bf16": routes16} if cfg.is_moe else {}
     got = r16["logits"][:, :held]
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits")
-    want = teacher(params, cfg, r16["tokens"])
     bf16 = lm_gap(got, want)
+    if cfg.is_moe:
+        # the bf16 steps before a row's first flipped expert (at any
+        # layer, prefill included): there bf16 rounding alone separates
+        # decode from the teacher, so they are held to a dense case's
+        # limit, beside the whole gap's
+        clean = (torch.arange(held, device=dev) + length - 1)[None, :] \
+            < routes16["first"][:, None]
+        check(bool(clean.any()), f"{label}: every bf16 step follows a "
+                                 f"flipped expert")
+        gap = (got - want).abs().amax(dim=-1)
+        clean_bf16 = float(gap[clean].max() / want.abs().max())
     # bf16's own drift: the bf16 forward against the fp32 forward of the
     # same params and tokens (a reading, not a limit)
     drift = lm_gap(want, teacher(p32, cfg32, r16["tokens"]))
     del p32
     swapped = r16["tokens"].clone()
     swapped[:, 0] = (swapped[:, 0] + 1) % cfg.vocab_size
-    control = lm_gap(got, teacher(params, cfg, swapped))
+    control_logits = teacher(params, cfg, swapped)
+    control = lm_gap(got, control_logits)
     counts = ops.launch_counts()
     check(not any(counts.values()), f"{label}: a kernel launched {counts}")
     limit = LM_BF16_RTOL[(arch, prompt_len)]
@@ -2063,17 +2192,54 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
                          f"forward (limit {limit:g})")
     check(control > limit, f"{label}: the control (one token swapped) "
                            f"reads {control:.3e}, within the limit {limit:g}")
+    if cfg.is_moe:
+        clean_limit = LM_BF16_CLEAN_RTOL[arch]
+        gap = (got - control_logits).abs().amax(dim=-1)
+        clean_control = float(gap[clean].max() / want.abs().max())
+        check(clean_bf16 <= clean_limit,
+              f"{label}: bf16 decode before a flipped expert is "
+              f"{clean_bf16:.3e} off its forward (limit {clean_limit:g})")
+        check(clean_control > clean_limit,
+              f"{label}: the control before a flipped expert reads "
+              f"{clean_control:.3e}, within the limit {clean_limit:g}")
+    del control_logits
     cache = r16["cache"]
-    prof = device_breakdown(f"{label}: one decode step",
-                            lambda: decode_step(params, cfg,
-                                                r16["tokens"][:, -1:],
-                                                cache))
+    with recorded_routes() as step_routes:
+        prof = device_breakdown(f"{label}: one decode step",
+                                lambda: decode_step(params, cfg,
+                                                    r16["tokens"][:, -1:],
+                                                    cache))
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(params))
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(cache))
     bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES * 1e3
     ms_tok = r16["decode_s"] / (LM_DECODE - 1) * 1e3
+    moe_text = ""
+    out = {}
+    if cfg.is_moe:
+        step_bytes, routed = routed_bytes(params, cfg, step_routes,
+                                          cache_bytes)
+        disagree = {k: {"differ": r["differ"], "decisions": r["decisions"],
+                        "prefill_differ": r["prefill_differ"]}
+                    for k, r in routes.items()}
+        out.update(routed_bound_ms=step_bytes / PEAK_BYTES * 1e3,
+                   routed_experts=routed, routing_disagreements=disagree,
+                   bf16_clean_steps=int(clean.sum()),
+                   bf16_clean_err=clean_bf16,
+                   bf16_clean_limit=clean_limit,
+                   bf16_clean_control=clean_control)
+        moe_text = (f"; routed bytes bound {out['routed_bound_ms']:.4f} ms "
+                    f"({step_bytes / 1e9:.3f} GB: {routed} of "
+                    f"{cfg.n_experts} experts routed a layer, the "
+                    f"embedding's {LM_BATCH} rows); decode's routing "
+                    f"decisions that differ from the teacher's: "
+                    + ", ".join(f"{k} {r['differ']} of {r['decisions']} "
+                                f"(prefill positions {r['prefill_differ']})"
+                                for k, r in disagree.items())
+                    + f"; bf16 over the {int(clean.sum())} (row, step) "
+                    f"pairs before a row's first flip: {clean_bf16:.3e} "
+                    f"(limit {clean_limit:g}; control {clean_control:.3e})")
     print(f"  [{CARD}] {label}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{param_bytes / 1e9:.3f} GB of bf16 params; prefill "
@@ -2081,21 +2247,23 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
           f"to back; one step: "
           f"device {prof['device_ms']} ms, {prof.get('n_kernels')} kernels, "
           f"busy {prof.get('busy_share')}; bytes bound {bound_ms:.4f} ms "
-          f"(params + cache {cache_bytes / 1e6:.2f} MB over 3.35 TB/s); "
+          f"(params + cache {cache_bytes / 1e6:.2f} MB over 3.35 TB/s)"
+          f"{moe_text}; "
           f"decode vs forward over {held} steps: bf16 {bf16:.3e} (limit "
           f"{limit:g}; control {control:.3e}; bf16 forward vs fp32 "
           f"{drift:.3e}), fp32 {fp32:.3e} (limit {LM_FP32_RTOL:g})")
-    out = {"label": label, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "param_gb": param_bytes / 1e9,
-           "cache_mb": cache_bytes / 1e6, "prefill_s": r16["prefill_s"],
-           "decode_ms_per_token": ms_tok,
-           "step_device_ms": prof["device_ms"],
-           "step_kernels": prof.get("n_kernels"),
-           "step_busy_share": prof.get("busy_share"),
-           "step_wall_ms": prof["wall_ms"], "bound_ms": bound_ms,
-           "held_steps": held, "bf16_err": bf16, "bf16_limit": limit,
-           "bf16_control": control, "bf16_forward_drift": drift,
-           "fp32_err": fp32, "launches": counts}
+    out.update({"label": label, "n_layers": cfg.n_layers,
+                "d_model": cfg.d_model,
+                "vocab": cfg.vocab_size, "param_gb": param_bytes / 1e9,
+                "cache_mb": cache_bytes / 1e6, "prefill_s": r16["prefill_s"],
+                "decode_ms_per_token": ms_tok,
+                "step_device_ms": prof["device_ms"],
+                "step_kernels": prof.get("n_kernels"),
+                "step_busy_share": prof.get("busy_share"),
+                "step_wall_ms": prof["wall_ms"], "bound_ms": bound_ms,
+                "held_steps": held, "bf16_err": bf16, "bf16_limit": limit,
+                "bf16_control": control, "bf16_forward_drift": drift,
+                "fp32_err": fp32, "launches": counts})
     del params, r16, cache, got, want
     torch.cuda.empty_cache()
     return out
@@ -2138,13 +2306,103 @@ def lm_twin(dev) -> dict:
     return {"tokens_equal": same, "max_rel_err": err, "cpu_s": cpu_s}
 
 
+def moe_twin(dev, arch: str) -> dict:
+    """``arch``'s reduced config in fp32, params drawn on the CPU and
+    moved to the card: LM_TWIN_STEPS greedy tokens through ``serve`` on
+    both devices (the prefill dropless), then ``forward`` on the GShard
+    path; tokens, every routing decision's experts, logits and the aux
+    loss held card against CPU."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.transformer import forward, init_params
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(22)
+    params = init_params(cfg, "cpu", gen)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=gen, dtype=torch.int32)
+    runs = {}
+    for where, p in (("cpu", params),
+                     ("card", tree_map(lambda t: t.to(dev), params))):
+        device = "cpu" if where == "cpu" else dev
+        with recorded_routes() as routes:
+            out = serve(arch, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                        decode_len=LM_TWIN_STEPS, device=device, params=p,
+                        prompts=prompts, cfg=cfg, verbose=False,
+                        keep_logits=True)
+            logits, aux = forward(p, cfg, tokens=prompts.to(device),
+                                  moe_path="gshard")
+        runs[where] = {"tokens": out["tokens"].cpu(),
+                       "logits": out["logits"].cpu(),
+                       "routes": [r.cpu() for r in routes],
+                       "gshard": logits.cpu(), "aux": float(aux)}
+    cpu, card = runs["cpu"], runs["card"]
+    same_tokens = bool(torch.equal(card["tokens"], cpu["tokens"]))
+    same_routes = (len(card["routes"]) == len(cpu["routes"]) and all(
+        torch.equal(a, b) for a, b in zip(card["routes"], cpu["routes"])))
+    err = lm_gap(card["logits"], cpu["logits"])
+    gshard = lm_gap(card["gshard"], cpu["gshard"])
+    aux = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+    label = f"{cfg.name} fp32 twin"
+    check(same_tokens, f"{label}: the card's greedy tokens differ from the "
+                       f"CPU's")
+    check(same_routes, f"{label}: the card routes tokens to other experts "
+                       f"than the CPU")
+    check(err <= LM_TWIN_RTOL and gshard <= LM_TWIN_RTOL,
+          f"{label}: card logits {err:.3e} (serve), {gshard:.3e} (GShard "
+          f"forward) off the CPU's")
+    check(aux <= 1e-5, f"{label}: the aux loss is {aux:.3e} off the CPU's")
+    n = sum(r.numel() // r.shape[-1] for r in cpu["routes"])
+    print(f"  [{CARD}] {label} ({LM_TWIN_STEPS} tokens): tokens and all "
+          f"{n} routing decisions equal the CPU's; logits within {err:.3e} "
+          f"of the largest, the GShard forward within {gshard:.3e} (limit "
+          f"{LM_TWIN_RTOL:g}), its aux loss {aux:.3e} off")
+    return {"tokens_equal": same_tokens, "routes_equal": same_routes,
+            "decisions": n, "max_rel_err": err, "gshard_rel_err": gshard,
+            "aux_rel_err": aux}
+
+
+def print_depth_cut(arch: str) -> None:
+    """Print why ``arch`` runs with its depth cut, and its widths."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    full = get_config(arch)
+    n = full.param_count(init_params(full, device="meta"))
+    experts = (f", {full.n_experts} experts of d_ff {full.d_ff}, top "
+               f"{full.moe_top_k}, {full.n_shared_experts} shared"
+               if full.is_moe else f", d_ff {full.d_ff}")
+    print(f"  {arch}: {n * 2 / 1e9:.1f} GB of bf16 params at "
+          f"{full.n_layers} layers do not fit one 80 GB card: its published "
+          f"widths (d_model {full.d_model}, {full.n_heads} heads, "
+          f"{full.n_kv_heads} kv{experts}, vocab {full.vocab_size}) run "
+          f"with the depth cut to {LM_DEPTH_CUT[arch]} layers; a step's "
+          f"share outside the layers (embedding, head, the host's per-step "
+          f"work) is larger than at full depth")
+
+
+def moe_serving_phase(dev) -> dict:
+    """MoE and MLA serving: mixtral-8x7b and deepseek-v2-236b at their
+    published widths, the depth cut, through phase 20's case runner; the
+    reduced configs' fp32 twins against the CPU."""
+    from repro_torch.kernels import ops
+    check(torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmuls may run in TF32: MoE routing needs IEEE fp32")
+    out = {"cases": []}
+    for arch in MOE_CASES:
+        print_depth_cut(arch)
+        out["cases"].append(lm_case(dev, arch, LM_PROMPT))
+    ops.reset_launch_counts()
+    out["twins"] = {arch: moe_twin(dev, arch) for arch in MOE_CASES}
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"the MoE twins launched {counts}")
+    return out
+
+
 def lm_serving_phase(dev) -> dict:
     """The LM zoo's serving path: each case through ``serve`` in bf16 and
     fp32, held against its forward, timed, one step under the profiler;
     the depth cuts printed; qwen2-0.5b's fp32 twin against the CPU."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.steps import greedy_sample
-    from repro_torch.models.transformer import init_params
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: the fp32 holds need IEEE fp32 products")
     # greedy ties go to the first maximum, as jnp.argmax's
@@ -2155,16 +2413,7 @@ def lm_serving_phase(dev) -> dict:
     out = {"cases": []}
     for arch, prompt_len in LM_CASES:
         if arch in LM_DEPTH_CUT:
-            full = get_config(arch)
-            n = full.param_count(init_params(full, device="meta"))
-            print(f"  {arch}: {n * 2 / 1e9:.1f} GB of bf16 params at "
-                  f"{full.n_layers} layers do not fit one 80 GB card: its "
-                  f"published widths (d_model {full.d_model}, "
-                  f"{full.n_heads} heads, {full.n_kv_heads} kv, d_ff "
-                  f"{full.d_ff}, vocab {full.vocab_size}) run with the "
-                  f"depth cut to {LM_DEPTH_CUT[arch]} layers; a step's "
-                  f"share outside the layers (embedding, head, the host's "
-                  f"per-step work) is larger than at full depth")
+            print_depth_cut(arch)
         out["cases"].append(lm_case(dev, arch, prompt_len))
     out["qwen2_fp32_twin"] = lm_twin(dev)
     return out
@@ -2907,6 +3156,12 @@ def main() -> int:
     lm_serving["wall_s"] = time.perf_counter() - t0
     print(f"  phase 20 wall time {lm_serving['wall_s']:.1f} s")
 
+    print("[21] MoE and MLA serving: mixtral-8x7b and deepseek-v2-236b")
+    t0 = time.perf_counter()
+    moe_serving = moe_serving_phase(dev)
+    moe_serving["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 21 wall time {moe_serving['wall_s']:.1f} s")
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -2966,7 +3221,8 @@ def main() -> int:
          "async_federations": async_fed, "async_server": async_server,
          "zoo_federation": zoo_fed, "resnet_federation": resnet_fed,
          "serving": serving, "checkpoints": checkpoints,
-         "lm_serving": lm_serving, "wall_s": time.perf_counter() - t_start},
+         "lm_serving": lm_serving, "moe_serving": moe_serving,
+         "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

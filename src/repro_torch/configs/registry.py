@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch import Device
+from repro_torch import Device, resolve_device
 from repro_torch.models.cache import init_cache
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.frontends import VLM_IMAGE_TOKENS, frontend_dim
@@ -100,11 +100,11 @@ def input_specs(cfg: ModelConfig, shape: InputShape,
 
 def concrete_inputs(generator: Optional[torch.Generator], cfg: ModelConfig,
                     shape: InputShape, batch_override: Optional[int] = None,
-                    device: Device = "cpu") -> Dict[str, Any]:
+                    device: Device = None) -> Dict[str, Any]:
     """Small concrete inputs matching ``input_specs`` (for smoke tests):
     tokens uniform below the vocabulary, embeds standard normal, a decode
-    cache empty."""
-    return _inputs(cfg, shape, batch_override, torch.device(device),
+    cache empty; on ``device`` (None: the card, raising without one)."""
+    return _inputs(cfg, shape, batch_override, resolve_device(device),
                    generator)
 
 

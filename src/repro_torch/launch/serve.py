@@ -41,6 +41,10 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     ``decode_len`` tokens greedily. Params, prompts and (for a frontend)
     8 frames of embeds are drawn from ``seed`` on the device unless
     given: the seam through which a test feeds the reference's draws.
+    Given prompts set the prompt length (``prompts.shape[1]``, whatever
+    ``prompt_len`` says), and the cache holds it plus ``decode_len``
+    positions. The prefill's MoE FFN takes the dropless path, as the
+    reference's serve does.
     A given ``cfg`` replaces the arch's preset (a depth cut); given
     params set its ``param_dtype``. Returns the reference's keys (arch,
     generated shape, prefill_s, decode_s), the generated ``tokens``
@@ -55,12 +59,13 @@ def serve(arch: str, reduced: bool = True, batch: int = 4,
     gen = torch.Generator(device=dev).manual_seed(seed)
     if params is None:
         params = init_params(cfg, dev, gen)
-    cache_seq = prompt_len + decode_len
-    prefill_fn = make_prefill_step(cfg, cache_seq=cache_seq)
-    serve_fn = make_serve_step(cfg)
     if prompts is None:
         prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                                 generator=gen, dtype=torch.int32, device=dev)
+    batch, prompt_len = prompts.shape
+    prefill_fn = make_prefill_step(cfg, moe_path="dropless",
+                                   cache_seq=prompt_len + decode_len)
+    serve_fn = make_serve_step(cfg)
     batch_in = {"tokens": prompts.to(dev)}
     if cfg.frontend is not None:
         if embeds is None:

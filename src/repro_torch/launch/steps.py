@@ -11,13 +11,14 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import decode_step, prefill
 
 
-def make_prefill_step(cfg: ModelConfig, cache_seq: int = 0):
+def make_prefill_step(cfg: ModelConfig, moe_path: str = "gshard",
+                      cache_seq: int = 0):
     """(params, inputs) -> (last-token logits, primed cache)."""
 
     def prefill_step(params, batch):
         logits, cache = prefill(params, cfg, tokens=batch.get("tokens"),
                                 embeds=batch.get("embeds"),
-                                cache_seq=cache_seq)
+                                cache_seq=cache_seq, moe_path=moe_path)
         return logits[:, -1:, :], cache
 
     return prefill_step

@@ -1,5 +1,5 @@
-"""The GQA attention mixer: full sequence (train / prefill) and one-token
-decode against a cache.
+"""The attention mixers, GQA and DeepSeek-V2's MLA: full sequence (train
+/ prefill) and one-token decode against a cache.
 
 Shapes: x (B, S, D); q (B, S, H, hd); k/v (B, S, KV, hd); weights
 ``wq (D, H, hd)``, ``wk``/``wv (D, KV, hd)``, ``wo (H, hd, D)``, the
@@ -7,7 +7,14 @@ reference's layouts. Scores are divided by sqrt(hd), causally masked and
 soft-maxed in fp32. Sequences up to ``DIRECT_ATTN_MAX_SEQ`` keys take the
 masked-einsum path, longer ones the chunked online softmax. Decode writes
 one slot of a full cache or of a ring buffer (``window`` > 0) in place.
-MLA (DeepSeek-V2) is declared but waits for the MoE/MLA slice.
+
+MLA keeps a rank-r latent ``ckv`` and one shared RoPE key ``krope`` (rh)
+per position: ``w_dkv (D, r+rh)``, ``w_uk (r, H, hd)``, ``w_uv (r, H,
+vh)``, ``wo (H, vh, D)``, and the query through ``w_dq (D, qr)`` and
+``w_uq (qr, H, hd+rh)``, or ``wq (D, H, hd+rh)`` without a query rank.
+The full sequence materializes per-head keys (qk dim hd+rh) and values
+(vh); decode attends in the latent space with W_uk absorbed into the
+query, in fp32.
 """
 from __future__ import annotations
 
@@ -25,9 +32,6 @@ DIRECT_ATTN_MAX_SEQ = 4096
 # key position of an empty cache slot or a padded key: never <= a query's
 INT_MAX = torch.iinfo(torch.int32).max
 
-MLA_WAITS = ("MLA (DeepSeek-V2) is not ported yet: it comes with the "
-             "MoE/MLA slice")
-
 
 def init_attention(init: Init, cfg: ModelConfig) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -44,16 +48,22 @@ def init_attention(init: Init, cfg: ModelConfig) -> Params:
 
 
 def init_mla(init: Init, cfg: ModelConfig) -> Params:
-    raise NotImplementedError(MLA_WAITS)
-
-
-def mla_forward(p: Params, cfg: ModelConfig, x, positions,
-                return_kv: bool = False):
-    raise NotImplementedError(MLA_WAITS)
-
-
-def mla_decode(p: Params, cfg: ModelConfig, x, cache):
-    raise NotImplementedError(MLA_WAITS)
+    """DeepSeek-V2 Multi-head Latent Attention params."""
+    d, h = cfg.d_model, cfg.n_heads
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    hd, rh = cfg.hd, cfg.rope_head_dim
+    vh = cfg.v_head_dim or hd
+    dt = cfg.param_dtype
+    p = {"w_dkv": dense_init(init, (d, r + rh), dt),
+         "w_uk": dense_init(init, (r, h, hd), dt, fan_in=r),
+         "w_uv": dense_init(init, (r, h, vh), dt, fan_in=r),
+         "wo": dense_init(init, (h, vh, d), dt, fan_in=h * vh)}
+    if qr > 0:
+        p["w_dq"] = dense_init(init, (d, qr), dt)
+        p["w_uq"] = dense_init(init, (qr, h, hd + rh), dt, fan_in=qr)
+    else:
+        p["wq"] = dense_init(init, (d, h, hd + rh), dt)
+    return p
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -186,6 +196,86 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     cache["k_pos"].index_copy_(0, slot, positions)
     o = direct_attention(q, cache["k"], cache["v"], positions,
                          cache["k_pos"], window)
+    y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    pos.add_(1)                    # after every read of the old position
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): full sequence + absorbed decode
+# ---------------------------------------------------------------------------
+
+def _mla_q(p: Params, cfg: ModelConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    """(q_nope (B,S,H,hd), q_rope (B,S,H,rh) roped)."""
+    if cfg.q_lora_rank > 0:
+        cq = torch.einsum("bsd,dr->bsr", x, p["w_dq"])
+        q = torch.einsum("bsr,rhk->bshk", cq, p["w_uq"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    hd = cfg.hd
+    return q[..., :hd], apply_rope(q[..., hd:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """(ckv (B,S,r), krope (B,S,rh) roped)."""
+    r = cfg.kv_lora_rank
+    dkv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])      # (B,S,r+rh)
+    krope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)
+    return dkv[..., :r], krope[:, :, 0]
+
+
+def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor, return_kv: bool = False):
+    """Full-sequence MLA: per-head keys and values materialized from the
+    latent, the shared RoPE key broadcast over the heads. With
+    ``return_kv`` also (ckv (B,S,r), krope (B,S,rh)) in x's dtype, the
+    decode cache's contents."""
+    ckv, krope = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])  # (B,S,H,hd)
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])       # (B,S,H,vh)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    k_full = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *k_nope.shape[:3], krope.shape[-1])], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention_any(q_full, k_full, v, positions, positions)
+    y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
+    if return_kv:
+        return y, (ckv.to(x.dtype), krope.to(x.dtype))
+    return y
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params):
+    """Absorbed-matmul MLA decode in the rank-r latent space. cache
+    {'ckv': (B,S,r), 'krope': (B,S,rh), 'k_pos': (S,), 'pos': ()},
+    updated in place and returned. The new position goes to slot
+    ``min(pos, S - 1)``, as in ``attn_decode``. Scores are q_eff·ckv +
+    q_rope·krope over sqrt(hd + rh), with q_eff = q_nope W_uk per head,
+    and the output o_lat W_uv: all in fp32, the per-head K and V never
+    materialized."""
+    rh, hd = cfg.rope_head_dim, cfg.hd
+    pos = cache["pos"]
+    positions = pos.reshape(1)
+    ckv1, krope1 = _mla_latent(p, cfg, x, positions)
+    slot = torch.clamp(pos, max=cache["ckv"].shape[1] - 1).reshape(1).long()
+    cache["ckv"].index_copy_(1, slot, ckv1.to(cache["ckv"].dtype))
+    cache["krope"].index_copy_(1, slot, krope1.to(cache["krope"].dtype))
+    cache["k_pos"].index_copy_(0, slot, positions)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)          # (B,1,H,hd/rh)
+    q_eff = torch.einsum("bshk,rhk->bshr", q_nope.float(),
+                         p["w_uk"].float())                 # (B,1,H,r)
+    ckv = cache["ckv"].float()
+    scores = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             cache["krope"].float()))
+    scores = scores / math.sqrt(hd + rh)
+    mask = _mask(positions, cache["k_pos"], 0)              # (1,S)
+    scores = torch.where(mask[None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)                   # (B,H,1,S)
+    o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)
+    o = torch.einsum("bshr,rhk->bshk", o_lat, p["w_uv"].float())
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     pos.add_(1)                    # after every read of the old position
     return y, cache

@@ -36,8 +36,8 @@ class ModelConfig:
 
     ``layer_pattern`` is the repeating unit of per-layer mixer types, e.g.
     ``("local",) * 5 + ("global",)`` for gemma3's 5:1. Valid mixer types:
-    "global", "local", "mla", "ssd", "rec" ("mla" and the MoE FFN are
-    declared here but do not run yet).
+    "global", "local", "mla", "ssd", "rec"; ``n_experts`` > 0 makes every
+    layer's FFN a Mixture of Experts.
     """
 
     name: str

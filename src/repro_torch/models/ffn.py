@@ -1,18 +1,30 @@
-"""Feed-forward layers: the dense SwiGLU FFN.
+"""Feed-forward layers: the dense SwiGLU FFN and the Mixture-of-Experts FFN.
 
-The Mixture-of-Experts FFN (the reference's GShard, dropless and decode
-paths, ``repro/models/ffn.py:74-194``) is declared here and waits for the
-MoE/MLA slice, with mixtral-8x7b and deepseek-v2-236b.
+MoE params: ``router (D, E)`` in fp32, ``w_gate``/``w_up (E, D, F)`` and
+``w_down (E, F, D)`` in ``param_dtype``, and ``shared``, one dense FFN of
+width ``n_shared_experts * d_ff``, where the config has shared experts.
+Three paths, the reference's:
+
+  * ``moe_gshard_forward``: dispatch and combine products with a
+    per-row expert capacity; the choices past it are dropped;
+  * ``moe_dropless_forward``: the choices sorted by expert (a stable
+    sort), one product per expert over its rows;
+  * ``moe_decode``: one token per row, the k chosen experts' weights
+    gathered per row.
+
+Routing ties go to the lowest expert index, as ``jax.lax.top_k``'s, on
+every device. The router product is fp32 and must stay IEEE fp32 on the
+card (no TF32): a near tie at the k-th logit flips a whole expert.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
                                        swiglu)
 
-_MOE = ("the Mixture-of-Experts FFN is not ported yet: it comes with the "
-        "MoE/MLA slice")
+MOE_CAPACITY_FACTOR = 1.25
 
 
 def init_dense_ffn(init: Init, cfg: ModelConfig, d_ff: int = 0) -> Params:
@@ -24,19 +36,157 @@ def init_dense_ffn(init: Init, cfg: ModelConfig, d_ff: int = 0) -> Params:
             "w_down": dense_init(init, (f, d), dt, fan_in=f)}
 
 
+def init_moe(init: Init, cfg: ModelConfig) -> Params:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.param_dtype
+    p = {"router": dense_init(init, (d, e), torch.float32),
+         "w_gate": dense_init(init, (e, d, f), dt),
+         "w_up": dense_init(init, (e, d, f), dt),
+         "w_down": dense_init(init, (e, f, d), dt, fan_in=f)}
+    if cfg.n_shared_experts > 0:
+        p["shared"] = init_dense_ffn(init, cfg, cfg.n_shared_experts * f)
+    return p
+
+
 def dense_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
     u = torch.einsum("bsd,df->bsf", x, p["w_up"])
     return torch.einsum("bsf,fd->bsd", swiglu(g, u).to(x.dtype), p["w_down"])
 
 
-def init_moe(init: Init, cfg: ModelConfig) -> Params:
-    raise NotImplementedError(_MOE)
+# ---------------------------------------------------------------------------
+# routing (shared by all MoE paths)
+# ---------------------------------------------------------------------------
+
+def route(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """x (..., D) -> (combine weights (..., k) fp32, expert indices
+    (..., k) int64, Switch load-balance aux loss () fp32).
+
+    The top k are the first k of a stable descending sort, so equal
+    logits go to the lowest index (``torch.topk`` promises no order)."""
+    if x.is_cuda and (torch.get_float32_matmul_precision() != "highest"
+                      or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            "MoE routing needs IEEE fp32 router logits: TF32 matmuls are on "
+            "(torch.set_float32_matmul_precision('highest') turns them off)")
+    logits = torch.einsum("...d,de->...e", x.float(), p["router"])
+    k, e = cfg.moe_top_k, cfg.n_experts
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    weights = torch.softmax(vals, dim=-1)
+    me = torch.softmax(logits, dim=-1).reshape(-1, e).mean(dim=0)
+    ce = F.one_hot(idx.reshape(-1), e).float().mean(dim=0)
+    aux = e * torch.sum(me * ce)
+    return weights, idx, aux
 
 
-def moe_forward(p: Params, cfg: ModelConfig, x, path: str = "gshard"):
-    raise NotImplementedError(_MOE)
+def gshard_capacity(cfg: ModelConfig, s: int,
+                    capacity_factor: float = MOE_CAPACITY_FACTOR) -> int:
+    """Slots per expert and batch row: s k / E times the factor, Python's
+    (banker's) round, rounded up to a multiple of 16."""
+    cap = int(max(1, round(s * cfg.moe_top_k / cfg.n_experts
+                           * capacity_factor)))
+    return -(-cap // 16) * 16
 
 
-def moe_decode(p: Params, cfg: ModelConfig, x):
-    raise NotImplementedError(_MOE)
+# ---------------------------------------------------------------------------
+# the three paths
+# ---------------------------------------------------------------------------
+
+def moe_gshard_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       capacity_factor: float = MOE_CAPACITY_FACTOR):
+    """x (B,S,D) -> (y, aux). Each (token, choice) takes the next slot of
+    its expert's buffer in token-major order; past the capacity it is
+    dropped (contributes nothing)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    cap = gshard_capacity(cfg, s, capacity_factor)
+    weights, idx, aux = route(p, cfg, x)                    # (B,S,k)
+    oh = F.one_hot(idx, e)                                  # (B,S,k,E)
+    oh_flat = oh.reshape(b, s * k, e)
+    pos_in_e = (torch.cumsum(oh_flat, dim=1) * oh_flat - 1).reshape(
+        b, s, k, e)
+    # slot c of expert e: an unchosen expert (-1) and a dropped choice
+    # (>= cap) match no slot, as the reference's one_hot(-1) is all zeros
+    slots = torch.arange(cap, device=x.device)
+    cap_oh = (pos_in_e[..., None] == slots).to(x.dtype)     # (B,S,k,E,C)
+    dispatch = cap_oh.sum(dim=2)                            # (B,S,E,C)
+    combine = (cap_oh * weights[..., None, None].to(x.dtype)).sum(dim=2)
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x)        # (B,E,C,D)
+    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    h = swiglu(g, u)
+    ye = torch.einsum("becf,efd->becd", h.float(),
+                      p["w_down"].float()).to(x.dtype)
+    y = torch.einsum("bsec,becd->bsd", combine, ye)
+    if "shared" in p:
+        y = y + dense_ffn(p["shared"], x)
+    return y, aux
+
+
+def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """x (B,S,D) -> (y, aux), no choice dropped. The (token, choice)
+    rows are sorted by expert (stable), each expert's rows go through its
+    FFN in one product per weight (the group sizes are copied to the
+    host), and each token's k weighted outputs are summed in ``x``'s
+    dtype in the sorted order, ascending expert, as the reference's
+    scatter-add sums them: deterministic, where ``index_add_`` on the
+    card is not."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    t = b * s
+    xf = x.reshape(t, d)
+    weights, idx, aux = route(p, cfg, x)
+    ef = idx.reshape(t * k)
+    order = torch.argsort(ef, stable=True)
+    xs = xf[order // k]                                     # (t*k, D)
+    ys = torch.empty_like(xs)
+    start = 0
+    for i, n in enumerate(torch.bincount(ef, minlength=e).tolist()):
+        if n:
+            rows = slice(start, start + n)
+            h = swiglu(xs[rows] @ p["w_gate"][i], xs[rows] @ p["w_up"][i])
+            ys[rows] = h @ p["w_down"][i]
+            start += n
+    yw = ys * weights.reshape(t * k)[order][:, None].to(ys.dtype)
+    per_choice = torch.empty_like(yw)
+    per_choice[order] = yw                                  # (t*k, D)
+    by_expert = torch.argsort(idx.reshape(t, k), dim=1)
+    parts = per_choice.reshape(t, k, d).gather(
+        1, by_expert[..., None].expand(t, k, d))
+    y = parts[:, 0]
+    for j in range(1, k):
+        y = y + parts[:, j]
+    y = y.reshape(b, s, d).to(x.dtype)
+    if "shared" in p:
+        y = y + dense_ffn(p["shared"], x)
+    return y, aux
+
+
+def moe_decode(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """x (B,1,D) -> (y, aux): the k chosen experts' weights gathered per
+    row, (B,k,D,F) each (mixtral-8x7b at batch 4: 2.82 GB of bf16 copies
+    a layer), then one product per (row, choice); no host sync."""
+    b, s, d = x.shape
+    if s != 1:
+        raise ValueError(f"moe_decode expects one token per row, got S={s}")
+    weights, idx, aux = route(p, cfg, x)                    # (B,1,k)
+    idxf = idx[:, 0]                                        # (B,k)
+    xe = x[:, :, None, :]                                   # (B,1,1,D)
+    g = torch.matmul(xe, p["w_gate"][idxf])                 # (B,k,1,F)
+    u = torch.matmul(xe, p["w_up"][idxf])
+    h = swiglu(g, u)
+    ye = torch.matmul(h.float(), p["w_down"][idxf].float())[:, :, 0]
+    y = torch.einsum("bkd,bk->bd", ye, weights[:, 0])[:, None, :].to(x.dtype)
+    if "shared" in p:
+        y = y + dense_ffn(p["shared"], x)
+    return y, aux
+
+
+def moe_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                path: str = "gshard"):
+    if path == "gshard":
+        return moe_gshard_forward(p, cfg, x)
+    if path == "dropless":
+        return moe_dropless_forward(p, cfg, x)
+    raise ValueError(f"unknown moe path {path!r}")

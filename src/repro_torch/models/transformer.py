@@ -1,5 +1,4 @@
-"""The layer-group decoder stack for every assigned architecture but the
-MoE and MLA ones.
+"""The layer-group decoder stack for every assigned architecture.
 
 Params keep the reference's tree: per-position layer params stacked over
 the ``cfg.n_groups`` repeats of ``cfg.layer_pattern`` under
@@ -8,9 +7,12 @@ remainder layers. The reference scans over the groups; here a Python
 loop runs each group's slice. Caches share the layout (``cache.py``).
 
 Three entry points:
-  forward(...)      full-sequence logits
+  forward(...)      full-sequence logits and the MoE aux loss
   prefill(...)      full-sequence logits + a primed decode cache
   decode_step(...)  one token against the cache, updated in place
+
+``moe_path`` picks the MoE FFN's full-sequence path ("gshard", the
+reference's default, or "dropless"); decode runs ``moe_decode``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.cache import full_kv_to_cache
+from repro_torch.models.cache import full_kv_to_cache, mla_kv_to_cache
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
                                        embed_init, init_rmsnorm, rmsnorm,
                                        tree_map)
@@ -60,20 +62,26 @@ def _window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
-               decode: bool) -> torch.Tensor:
+               moe_path: Optional[str]):
+    """(x + FFN(norm2(x)), MoE aux loss or None); ``moe_path`` None is
+    the decode path."""
     h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    if cfg.is_moe:
-        y = (ffn_mod.moe_decode(p["ffn"], cfg, h) if decode
-             else ffn_mod.moe_forward(p["ffn"], cfg, h))
-    else:
+    aux = None
+    if not cfg.is_moe:
         y = ffn_mod.dense_ffn(p["ffn"], h)
-    return x + y
+    elif moe_path is None:
+        y, _ = ffn_mod.moe_decode(p["ffn"], cfg, h)
+    else:
+        y, aux = ffn_mod.moe_forward(p["ffn"], cfg, h, path=moe_path)
+    return x + y, aux
 
 
 def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
-                positions: torch.Tensor, cache_seq: int = 0):
-    """Full-sequence layer. Returns (x, cache or None): the layer's decode
-    cache of capacity ``cache_seq`` when that is > 0."""
+                positions: torch.Tensor, moe_path: str = "gshard",
+                cache_seq: int = 0):
+    """Full-sequence layer. Returns (x, MoE aux loss or None, cache or
+    None): the layer's decode cache of capacity ``cache_seq`` when that
+    is > 0."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     want = cache_seq > 0
     cache = None
@@ -85,6 +93,9 @@ def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
             cache = full_kv_to_cache(k, v, cache_seq, _window(cfg, kind))
     elif kind == "mla":
         y = attn.mla_forward(p["mixer"], cfg, h, positions, return_kv=want)
+        if want:
+            y, (ckv, krope) = y
+            cache = mla_kv_to_cache(ckv, krope, cache_seq)
     elif kind == "ssd":
         y = ssm_mod.ssd_forward(p["mixer"], cfg, h, return_state=want)
     elif kind == "rec":
@@ -94,9 +105,10 @@ def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
     if want and cache is None:
         y, cache = y
     x = x + y
+    aux = None
     if cfg.d_ff > 0:
-        x = _apply_ffn(p, cfg, x, decode=False)
-    return x, cache
+        x, aux = _apply_ffn(p, cfg, x, moe_path)
+    return x, aux, cache
 
 
 def apply_layer_decode(p: Params, cfg: ModelConfig, kind: str,
@@ -115,7 +127,7 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, kind: str,
         raise ValueError(kind)
     x = x + y
     if cfg.d_ff > 0:
-        x = _apply_ffn(p, cfg, x, decode=True)
+        x, _ = _apply_ffn(p, cfg, x, None)
     return x
 
 
@@ -200,50 +212,57 @@ def _stack(trees: List) -> Params:
 
 
 def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, cache_seq: int):
-    """Every layer over the full sequence: (x, group caches, rem caches)."""
+               positions: torch.Tensor, moe_path: str, cache_seq: int):
+    """Every layer over the full sequence: (x, aux, group caches, rem
+    caches); aux is the layers' MoE aux losses summed in fp32, in stack
+    order."""
     pattern = cfg.layer_pattern
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(p, kind):
+        nonlocal x, aux
+        x, a, c = apply_layer(p, cfg, kind, x, positions, moe_path,
+                              cache_seq)
+        if a is not None:
+            aux = aux + a
+        return c
+
     group_caches: List[Params] = []
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
-        caches = {}
-        for i, kind in enumerate(pattern):
-            x, caches[f"pos{i}"] = apply_layer(gp[f"pos{i}"], cfg, kind, x,
-                                               positions, cache_seq)
-        group_caches.append(caches)
-    rem_caches = []
-    for i, p in enumerate(params["rem"]):
-        x, c = apply_layer(p, cfg, pattern[i], x, positions, cache_seq)
-        rem_caches.append(c)
-    return x, group_caches, rem_caches
+        group_caches.append({f"pos{i}": layer(gp[f"pos{i}"], kind)
+                             for i, kind in enumerate(pattern)})
+    rem_caches = [layer(p, pattern[i]) for i, p in enumerate(params["rem"])]
+    return x, aux, group_caches, rem_caches
 
 
 def forward(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
-            positions: Optional[torch.Tensor] = None):
-    """Returns (logits (B,S,V) fp32, aux loss): the aux loss is the MoE
-    load-balance term, 0 for the architectures the port runs."""
+            positions: Optional[torch.Tensor] = None,
+            moe_path: str = "gshard"):
+    """Returns (logits (B,S,V) fp32, aux loss () fp32): the sum of the
+    MoE layers' load-balance terms, 0 without experts."""
     x = embed_inputs(params, cfg, tokens, embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-    x, _, _ = _run_stack(params, cfg, x, positions, 0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _, _ = _run_stack(params, cfg, x, positions, moe_path, 0)
     return lm_logits(params, cfg, x), aux
 
 
 def prefill(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
-            cache_seq: int = 0):
+            cache_seq: int = 0, moe_path: str = "gshard"):
     """Full-sequence forward that also primes a decode cache of capacity
-    ``cache_seq`` (>= prompt length). Returns (logits, cache)."""
+    ``cache_seq`` (>= prompt length). Returns (logits, cache); the MoE
+    aux loss is dropped, as the reference's is."""
     x = embed_inputs(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    x, group_caches, rem = _run_stack(params, cfg, x, positions,
-                                      max(cache_seq, s))
+    x, _, group_caches, rem = _run_stack(params, cfg, x, positions,
+                                         moe_path, max(cache_seq, s))
     cache = {"groups": _stack(group_caches), "rem": rem}
     return lm_logits(params, cfg, x), cache
 

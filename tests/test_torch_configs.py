@@ -5,11 +5,11 @@ Every architecture's ``ModelConfig`` equals the reference's field for
 field (``param_dtype`` by name), at full and at reduced size, with the
 same derived values. At full width the port's ``init_params`` on the
 ``meta`` device gives the leaf paths, shapes and dtypes of
-``jax.eval_shape(init_params)``; the MoE and MLA architectures raise
-``NotImplementedError`` naming the slice they wait for. The ``serve``
-CLI prints the reference CLI's keys and generated shape; bf16 params
-cross ``convert`` bit for bit; the serving path imports neither JAX nor
-the reference.
+``jax.eval_shape(init_params)`` for all ten architectures, MoE and MLA
+included. The ``serve`` CLI prints the reference CLI's keys and
+generated shape; bf16 params cross ``convert`` bit for bit, the MoE
+experts' stacked (G, E, D, F) leaves and fp32 router too; the serving
+path imports neither JAX nor the reference.
 """
 import dataclasses
 import io
@@ -33,17 +33,14 @@ from repro.models.common import _full_pattern
 from repro_torch import configs as TC
 from repro_torch.convert import lm_tree_from_numpy, lm_tree_to_numpy
 from repro_torch.launch import serve as tserve
-from repro_torch.models import attention as TA
-from repro_torch.models import ffn as TF
 from repro_torch.models import transformer as TT
 from repro_torch.models.common import full_pattern, tree_leaves
 
 EXPERT = ("mixtral-8x7b", "deepseek-v2-236b")
-SERVED = [a for a in JC.ARCH_IDS if a not in EXPERT]
 # full-width param counts of jax.eval_shape(init_params)
 COUNTS = {"qwen2-0.5b": 494032768, "gemma3-1b": 999812736,
-          "recurrentgemma-9b": 8578519040}
-NEXT = "MoE/MLA slice"
+          "recurrentgemma-9b": 8578519040, "mixtral-8x7b": 46702792704,
+          "deepseek-v2-236b": 239375447040}
 
 
 def test_registry_matches_reference():
@@ -83,7 +80,7 @@ def _paths(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("arch", JC.ARCH_IDS)
 def test_meta_params_match_eval_shape(arch):
     """Full width, no storage: every leaf's path, shape and dtype."""
     tp = TT.init_params(TC.get_config(arch), device="meta")
@@ -99,24 +96,6 @@ def test_meta_params_match_eval_shape(arch):
     if arch in COUNTS:
         assert n == COUNTS[arch]
     assert all(t.device.type == "meta" for t in tree_leaves(tp))
-
-
-@pytest.mark.parametrize("arch", EXPERT)
-def test_expert_archs_wait_for_the_next_slice(arch):
-    for cfg in (TC.get_config(arch), TC.get_reduced(arch)):
-        with pytest.raises(NotImplementedError, match=NEXT):
-            TT.init_params(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=NEXT):
-        tserve.serve(arch, device="cpu", verbose=False)
-
-
-@pytest.mark.parametrize("fn,args", [
-    (TA.init_mla, (None, None)), (TA.mla_forward, (None,) * 4),
-    (TA.mla_decode, (None,) * 4), (TF.init_moe, (None, None)),
-    (TF.moe_forward, (None,) * 3), (TF.moe_decode, (None,) * 3)])
-def test_moe_and_mla_entry_points_raise(fn, args):
-    with pytest.raises(NotImplementedError, match=NEXT):
-        fn(*args)
 
 
 @pytest.mark.parametrize("shape", list(JC.INPUT_SHAPES))
@@ -140,13 +119,24 @@ def test_concrete_inputs_match_specs():
     cfg = TC.get_reduced("musicgen-medium")
     shape = TC.INPUT_SHAPES["train_4k"]
     specs = TC.input_specs(cfg, shape, 2)
-    a = TC.concrete_inputs(torch.Generator().manual_seed(0), cfg, shape, 2)
-    b = TC.concrete_inputs(torch.Generator().manual_seed(0), cfg, shape, 2)
+    a = TC.concrete_inputs(torch.Generator().manual_seed(0), cfg, shape, 2,
+                           device="cpu")
+    b = TC.concrete_inputs(torch.Generator().manual_seed(0), cfg, shape, 2,
+                           device="cpu")
     assert set(a) == set(specs) == {"tokens", "labels", "embeds"}
     for k in a:
         assert a[k].shape == specs[k].shape and a[k].dtype == specs[k].dtype
         assert torch.equal(a[k], b[k])
     assert int(a["tokens"].max()) < cfg.vocab_size
+
+
+def test_concrete_inputs_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = TC.get_reduced("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TC.concrete_inputs(torch.Generator().manual_seed(0), cfg,
+                           TC.INPUT_SHAPES["decode_32k"], 2)
 
 
 def test_frontend_stand_ins_match_reference_shapes():
@@ -165,21 +155,35 @@ def test_frontend_stand_ins_match_reference_shapes():
     assert tuple(a.shape) == ja.shape and a.dtype == torch.float32
 
 
-def test_serve_cli_prints_the_reference_keys(monkeypatch):
-    argv = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "2",
+def _cli_outputs(monkeypatch, arch):
+    """The reference serve CLI's JSON and the port's (``--device cpu``)
+    on one reduced architecture, batch 2, prompt 8, 4 tokens."""
+    argv = ["--arch", arch, "--reduced", "--batch", "2",
             "--prompt-len", "8", "--decode", "4"]
     monkeypatch.setattr(sys, "argv", ["serve", *argv])
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        jserve.main()
-    want = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        tserve.main([*argv, "--device", "cpu"])
-    got = json.loads(buf.getvalue()[buf.getvalue().index("{"):])
+    outs = []
+    for run in (jserve.main, lambda: tserve.main([*argv, "--device", "cpu"])):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            run()
+        outs.append(json.loads(buf.getvalue()[buf.getvalue().index("{"):]))
+    return outs
+
+
+def test_serve_cli_prints_the_reference_keys(monkeypatch):
+    want, got = _cli_outputs(monkeypatch, "qwen2-0.5b")
     assert set(got) == set(want)
     assert got["generated"] == want["generated"] == "(2, 4)"
     assert got["arch"] == want["arch"] == "qwen2-smoke"
+
+
+@pytest.mark.parametrize("arch,name", [("mixtral-8x7b", "mixtral-smoke"),
+                                       ("deepseek-v2-236b", "dsv2-smoke")])
+def test_serve_cli_serves_the_expert_archs(monkeypatch, arch, name):
+    want, got = _cli_outputs(monkeypatch, arch)
+    assert set(got) == set(want)
+    assert got["generated"] == want["generated"] == "(2, 4)"
+    assert got["arch"] == want["arch"] == name
 
 
 def test_serve_defaults_to_the_card():
@@ -191,16 +195,16 @@ def test_serve_defaults_to_the_card():
         tserve.main(["--arch", "qwen2-0.5b"])
 
 
-def test_bf16_params_cross_bit_for_bit():
-    """The reference's bf16 params (ml_dtypes on its side) become bf16
-    tensors and come back as uint16 bits equal to the reference's."""
-    cfg = JC.get_reduced("recurrentgemma-9b")
+def _cross_bit_for_bit(arch):
+    """The reference's bf16 params of ``arch`` through ``convert`` both
+    ways: (the reference's numpy tree, the port's tensors)."""
+    cfg = JC.get_reduced(arch)
     params = jax.tree.map(np.asarray, jax.jit(
         JT.init_params, static_argnums=1)(jax.random.key(3), cfg))
     tp = lm_tree_from_numpy(params, "cpu")
-    assert tp["embed"].dtype == torch.bfloat16
-    assert tp["groups"]["pos0"]["mixer"]["w_a"].dtype == torch.float32
     back = lm_tree_to_numpy(tp)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(params))
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
         if b.dtype == ml_dtypes.bfloat16:
             assert a.dtype == np.uint16
@@ -208,24 +212,50 @@ def test_bf16_params_cross_bit_for_bit():
             assert np.array_equal(a.view(ml_dtypes.bfloat16), b)
         else:
             assert a.dtype == b.dtype and np.array_equal(a, b)
+    return params, tp
+
+
+def test_bf16_params_cross_bit_for_bit():
+    """The reference's bf16 params (ml_dtypes on its side) become bf16
+    tensors and come back as uint16 bits equal to the reference's."""
+    _, tp = _cross_bit_for_bit("recurrentgemma-9b")
+    assert tp["embed"].dtype == torch.bfloat16
+    assert tp["groups"]["pos0"]["mixer"]["w_a"].dtype == torch.float32
+
+
+def test_expert_params_cross_bit_for_bit():
+    """dsv2-smoke's MoE leaves: the fp32 router, the experts stacked
+    (G, E, D, F) in bf16, the shared expert, and MLA's projections."""
+    params, tp = _cross_bit_for_bit("deepseek-v2-236b")
+    cfg = TC.get_reduced("deepseek-v2-236b")
+    ffn = tp["groups"]["pos0"]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert tuple(ffn["router"].shape) == (cfg.n_groups, cfg.d_model,
+                                          cfg.n_experts)
+    assert ffn["w_gate"].dtype == torch.bfloat16
+    assert tuple(ffn["w_gate"].shape) == (cfg.n_groups, cfg.n_experts,
+                                          cfg.d_model, cfg.d_ff)
+    assert set(ffn["shared"]) == {"w_gate", "w_up", "w_down"}
+    assert "w_uq" in tp["groups"]["pos0"]["mixer"]
 
 
 def test_serving_path_imports_neither_jax_nor_the_reference():
-    """With jax and repro blocked, the serving modules import and a
-    reduced gemma3 serves on the CPU; chip_smoke.py names neither."""
+    """With jax and repro blocked, the serving modules import and reduced
+    gemma3, mixtral and deepseek-v2 (MoE, MLA) serve on the CPU;
+    chip_smoke.py names neither."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "from repro_torch.launch.serve import serve; "
             "import repro_torch.configs, repro_torch.convert; "
-            "out = serve('gemma3-1b', batch=1, prompt_len=20, "
-            "decode_len=3, device='cpu', verbose=False); "
-            "print(out['generated'])")
+            "[print(serve(a, batch=1, prompt_len=20, decode_len=3, "
+            "device='cpu', verbose=False)['generated']) for a in "
+            "('gemma3-1b', 'mixtral-8x7b', 'deepseek-v2-236b')]")
     src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "(1, 3)"
+    assert out.stdout.split() == ["(1,", "3)"] * 3
     smoke = os.path.join(os.path.dirname(__file__), os.pardir,
                          "chip_smoke.py")
     with open(smoke) as f:

@@ -1,22 +1,25 @@
 """The port's LM serving path against live runs of the reference's.
 
-Every architecture without MoE or MLA, at its reduced size with fp32
-params: the reference's ``init_params`` draws them (vectors and biases
-then moved off their trivial init by numpy noise), ``repro_torch.convert``
-carries them across, and both packages prefill the same prompts and take
-five greedy decode steps. Logits agree within 1e-4 of the largest logit,
-caches leaf for leaf (positions exactly), and caches cross both ways: the
-port decodes from the reference's cache and the reference from the
-port's. ``serve()`` fed the reference's params and prompts through its
-seam generates the reference's tokens, and the port's decode agrees with
-its own teacher-forced ``forward``.
+Every architecture at its reduced size with fp32 params: the
+reference's ``init_params`` draws them (vectors and biases then moved off
+their trivial init by numpy noise), ``repro_torch.convert`` carries them
+across, and both packages prefill the same prompts (the MoE FFN on the
+dropless path, as the reference's serve runs it) and take five greedy
+decode steps. Logits agree within 1e-4 of the largest logit, caches leaf
+for leaf (positions exactly), and caches cross both ways: the port
+decodes from the reference's cache and the reference from the port's.
+``serve()`` fed the reference's params and prompts through its seam
+generates the reference's tokens, and the port's decode agrees with its
+own teacher-forced ``forward`` (dropless: GShard may drop choices). The
+whole-stack ``forward`` of the two MoE architectures matches the
+reference's on both MoE paths, its summed aux loss too.
 
 The pieces: the chunked online softmax (chunk 16, with and without a
 window), one-token attention decode past a ring buffer's wrap and past a
 full cache's capacity, SSD and RG-LRU decode and their ``return_state``
 forms, ``full_kv_to_cache`` with prompts shorter and longer than the
-window. One bf16 case per layer kind (global, local, ssd, rec) and one
-bf16 stack (qwen2's tied head and QKV bias) hold the port to a looser
+window. One bf16 case per layer kind (global, local, mla, ssd, rec,
+and a MoE FFN) and one bf16 stack (qwen2's tied head and QKV bias) hold the port to a looser
 limit, BF16_REL of the largest output: the frameworks round bf16 at
 different points (XLA's CPU fusions keep fp32 between elementwise ops).
 """
@@ -34,6 +37,7 @@ from repro import configs as JC
 from repro.launch import steps as JS
 from repro.models import attention as JA
 from repro.models import cache as JCACHE
+from repro.models import ffn as JF
 from repro.models import rglru as JR
 from repro.models import ssm as JSSM
 from repro.models import transformer as JT
@@ -45,6 +49,7 @@ from repro_torch.launch import steps as TS
 from repro_torch.launch.serve import serve
 from repro_torch.models import attention as TA
 from repro_torch.models import cache as TCACHE
+from repro_torch.models import ffn as TF
 from repro_torch.models import rglru as TR
 from repro_torch.models import ssm as TSSM
 from repro_torch.models import transformer as TT
@@ -53,8 +58,8 @@ from repro_torch.models.common import ModelConfig as TModelConfig
 CPU = torch.device("cpu")
 REL = 1e-4
 BF16_REL = 3e-2
-ARCHS = [a for a in JC.ARCH_IDS if a not in ("mixtral-8x7b",
-                                            "deepseek-v2-236b")]
+ARCHS = list(JC.ARCH_IDS)
+EXPERT = ("mixtral-8x7b", "deepseek-v2-236b")
 # prompt 20 > the reduced gemma3/recurrentgemma window (16): the ring
 # buffers wrap while the prefill is packed and again while decoding;
 # mamba2's 16-token chunks leave a padded tail
@@ -141,7 +146,8 @@ def ref_run(request):
     cache_seq = PROMPT + DECODE
     pre = jax.jit(lambda p, b: JT.prefill(p, jcfg, tokens=b["tokens"],
                                           embeds=b.get("embeds"),
-                                          cache_seq=cache_seq))
+                                          cache_seq=cache_seq,
+                                          moe_path="dropless"))
     step = jax.jit(JS.make_serve_step(jcfg))
     batch = {"tokens": prompts}
     if embeds is not None:
@@ -168,11 +174,14 @@ def _port_embeds(run):
     return None if run["embeds"] is None else _t(run["embeds"])
 
 
+def _port_prefill(run, params):
+    return TT.prefill(params, run["tcfg"], tokens=_t(run["prompts"]),
+                      embeds=_port_embeds(run), cache_seq=PROMPT + DECODE,
+                      moe_path="dropless")
+
+
 def test_prefill_logits_and_cache_match_reference(ref_run):
-    logits, cache = TT.prefill(_port_params(ref_run), ref_run["tcfg"],
-                               tokens=_t(ref_run["prompts"]),
-                               embeds=_port_embeds(ref_run),
-                               cache_seq=PROMPT + DECODE)
+    logits, cache = _port_prefill(ref_run, _port_params(ref_run))
     _close(logits.numpy(), ref_run["prefill_logits"])
     _assert_cache(lm_tree_to_numpy(cache), ref_run["caches"][0])
     # the reference's cache crosses and comes back bit for bit
@@ -188,9 +197,7 @@ def test_decode_steps_match_reference_and_own_forward(ref_run):
     port's teacher-forced forward at that position (while the cache holds
     every position)."""
     cfg, params = ref_run["tcfg"], _port_params(ref_run)
-    _, cache = TT.prefill(params, cfg, tokens=_t(ref_run["prompts"]),
-                          embeds=_port_embeds(ref_run),
-                          cache_seq=PROMPT + DECODE)
+    _, cache = _port_prefill(ref_run, params)
     toks = ref_run["tokens"]
     got = []
     for t in range(DECODE - 1):
@@ -200,8 +207,9 @@ def test_decode_steps_match_reference_and_own_forward(ref_run):
     _assert_cache(lm_tree_to_numpy(cache), ref_run["caches"][-1])
     seq = np.concatenate([ref_run["prompts"], *toks[:-1]], axis=1)
     full, aux = TT.forward(params, cfg, tokens=_t(seq),
-                           embeds=_port_embeds(ref_run))
-    assert float(aux) == 0.0
+                           embeds=_port_embeds(ref_run), moe_path="dropless")
+    assert aux.dtype == torch.float32
+    assert (float(aux) > 0.0) == (ref_run["arch"] in EXPERT)
     # serve's cache holds prompt + decode positions; a frontend's frames
     # come first, so its last steps run past the capacity and overwrite
     # the last slot (as the reference's do): forward is held where the
@@ -223,9 +231,7 @@ def test_caches_cross_both_ways(ref_run):
     logits, _ = TT.decode_step(params, cfg, _t(tok), lm_tree_from_numpy(
         ref_run["caches"][0], CPU))
     _close(logits.numpy(), ref_run["logits"][0])
-    _, cache = TT.prefill(params, cfg, tokens=_t(ref_run["prompts"]),
-                          embeds=_port_embeds(ref_run),
-                          cache_seq=PROMPT + DECODE)
+    _, cache = _port_prefill(ref_run, params)
     want, _ = ref_run["step"](ref_run["params"], tok,
                               lm_tree_to_numpy(cache))
     _close(np.asarray(want), ref_run["logits"][0])
@@ -241,6 +247,46 @@ def test_serve_generates_the_reference_tokens(ref_run):
         out["tokens"].numpy(), np.concatenate(ref_run["tokens"], axis=1))
     assert out["generated"] == (BATCH, DECODE)
     assert out["arch"] == ref_run["jcfg"].name
+
+
+def test_serve_sizes_its_cache_from_the_given_prompts():
+    """Prompts of 20 tokens given with ``prompt_len=8``: the cache holds
+    the 20 prompt positions and every decoded one, so each step's logits
+    equal the teacher-forced forward's (a cache sized from prompt_len
+    would overwrite its last slot from the first steps on)."""
+    cfg = dataclasses.replace(TC.get_reduced("qwen2-0.5b"),
+                              param_dtype=torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    params = TT.init_params(cfg, CPU, gen)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=gen, dtype=torch.int32)
+    out = serve("qwen2-0.5b", batch=BATCH, prompt_len=8, decode_len=DECODE,
+                verbose=False, device="cpu", params=params, prompts=prompts,
+                keep_logits=True)
+    cache = out["cache"]["groups"]["pos0"]           # (G, B, S, KV, hd)
+    assert cache["k"].shape[2] == cache["k_pos"].shape[1] == PROMPT + DECODE
+    full, _ = TT.forward(params, cfg, tokens=torch.cat(
+        [prompts, out["tokens"][:, :-1]], dim=1))
+    _close(out["logits"].numpy(), full[:, PROMPT - 1:].numpy())
+
+
+@pytest.mark.parametrize("moe_path", ["gshard", "dropless"])
+@pytest.mark.parametrize("arch", EXPERT)
+def test_forward_and_aux_match_reference(arch, moe_path):
+    """The whole-stack forward of the MoE architectures on both paths:
+    logits, and the aux loss summed over the layers in fp32."""
+    jcfg, tcfg = _configs(arch)
+    params = _reference_params(jcfg)
+    tokens = np.random.default_rng(4).integers(
+        0, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    want, aux = jax.jit(lambda p, t: JT.forward(p, jcfg, tokens=t,
+                                                moe_path=moe_path))(
+        params, tokens)
+    got, taux = TT.forward(lm_tree_from_numpy(params, CPU), tcfg,
+                           tokens=_t(tokens), moe_path=moe_path)
+    _close(got.numpy(), want)
+    assert taux.dtype == torch.float32 and taux.shape == ()
+    assert float(aux) > 1.0 and abs(float(taux) - float(aux)) <= 1e-5
 
 
 def test_bf16_stack_matches_reference():
@@ -393,12 +439,59 @@ def test_full_kv_to_cache_matches_reference(s, window):
         np.testing.assert_array_equal(got[key], want[key])
 
 
-@pytest.mark.parametrize("kind", ["global", "local", "ssd", "rec"])
+def _bf16_mla():
+    """MLA in bf16 (dsv2-smoke's ranks at d_model 32): the full sequence
+    packs its latents into a 16-slot cache."""
+    jcfg, tcfg = _attn_cfg(jnp.bfloat16, torch.bfloat16, kv_lora_rank=16,
+                           q_lora_rank=12, rope_head_dim=4, head_dim=8,
+                           v_head_dim=6)
+    pos = np.arange(12, dtype=np.int32)
+
+    def jfwd(p, cfg, x, return_state):
+        y, (ckv, krope) = JA.mla_forward(p, cfg, x, pos, return_kv=True)
+        return y, JCACHE.mla_kv_to_cache(ckv, krope, 16)
+
+    def tfwd(p, c, x, return_state):
+        y, (ckv, krope) = TA.mla_forward(p, c, x, _t(pos), return_kv=True)
+        return y, TCACHE.mla_kv_to_cache(ckv, krope, 16)
+
+    return (jcfg, tcfg, JA.init_mla, jfwd, JA.mla_decode, tfwd,
+            TA.mla_decode)
+
+
+def _bf16_moe():
+    """The MoE FFN in bf16 (4 experts, top 2): the full sequence on the
+    dropless path (the reference's bf16 GShard does not run on XLA's CPU
+    runtime), decode on ``moe_decode``; no cache."""
+    jcfg, tcfg = _attn_cfg(jnp.bfloat16, torch.bfloat16, d_ff=16,
+                           n_experts=4, moe_top_k=2)
+
+    def jfwd(p, cfg, x, return_state):
+        return JF.moe_dropless_forward(p, cfg, x)[0], {}
+
+    def tfwd(p, c, x, return_state):
+        return TF.moe_dropless_forward(p, c, x)[0], {}
+
+    def jdec(p, cfg, x, cache):
+        return JF.moe_decode(p, cfg, x)[0], cache
+
+    def tdec(p, c, x, cache):
+        return TF.moe_decode(p, c, x)[0], cache
+
+    return jcfg, tcfg, JF.init_moe, jfwd, jdec, tfwd, tdec
+
+
+@pytest.mark.parametrize("kind", ["global", "local", "mla", "ssd", "rec",
+                                  "moe"])
 def test_bf16_layer_kind_matches_reference(kind):
     """Each layer kind with bf16 params and activations: 12 tokens in
     full, then three decode steps, within BF16_REL of the largest
     output."""
-    if kind in ("global", "local"):
+    if kind == "mla":
+        jcfg, tcfg, jinit, jfwd, jdec, tfwd, tdec = _bf16_mla()
+    elif kind == "moe":
+        jcfg, tcfg, jinit, jfwd, jdec, tfwd, tdec = _bf16_moe()
+    elif kind in ("global", "local"):
         jcfg, tcfg = _attn_cfg(jnp.bfloat16, torch.bfloat16)
         jinit = JA.init_attention
         window = 4 if kind == "local" else 0
