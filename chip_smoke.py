@@ -169,6 +169,25 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     ``argsort`` on the card against the CPU's), the logits within 1e-4,
     and the GShard forward's logits and aux loss, card against CPU; no
     kernel of the port launched;
+22. LM training (``repro_torch.launch.train``, ``make_train_step``): the
+    ten reduced configs in fp32 (vectors nudged by numpy noise), 3 steps
+    of Adam on warmup-cosine with clip 1.0 on the card and on the CPU
+    from the same params and batches, without and with remat, the MoE
+    configs on the GShard and dropless paths, mixtral-smoke's GShard also
+    with 2 microbatches: each step's ce and gnorm, the first step's grads
+    and every routing decision card against CPU, within fixed limits;
+    qwen2-0.5b at full width in bf16 through ``train()`` at the reference
+    CLI's batch 8 x seq 128, 30 steps at lr 1e-3, which must lower the
+    ce by more than 0.3 (the reference test's criterion), with ms a step
+    after 2 warm-up steps, tokens/s, peak memory, its checkpoint saved
+    and restored onto the card (bits equal), and one step under the
+    profiler beside its FLOP bounds (all bf16; the upcast head at the
+    fp32 peak); gemma3-1b, mamba2-780m and musicgen-medium at full
+    width, the other six at their published widths with the depth cut
+    to fit ~40 GB at Adam's 24 B a param (one layer at least;
+    internvl2-76b's and deepseek-v2-236b's one layer take SGD), the cuts
+    printed, 3 bf16 steps each: loss finite, params moved, ms a step,
+    peak memory; no kernel of the port launched;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -2419,6 +2438,378 @@ def lm_serving_phase(dev) -> dict:
     return out
 
 
+# phase 22: LM training on the card. The twins: every architecture's
+# reduced config in fp32 takes TRAIN_TWIN_STEPS ``make_train_step`` steps
+# on the card and on the CPU from the same params and batches (Adam,
+# warmup-cosine, clip 1.0): the MoE architectures on both paths, every
+# case without and with remat, mixtral-smoke's GShard also with 2
+# microbatches
+TRAIN_TWIN_STEPS, TRAIN_TWIN_BATCH, TRAIN_TWIN_SEQ = 3, 4, 32
+TRAIN_TWIN_LR = 1e-3
+TRAIN_TWIN_MICROBATCHES = ("mixtral-8x7b", "gshard")
+# card against CPU, fixed before the first run: each step's ce and gnorm
+# within these shares of the CPU's, the first step's grads per leaf
+# within this share of the leaf's largest CPU grad (fp32 sums in other
+# orders; the CPU tests hold the port's grads to the reference's at 1e-4)
+TRAIN_TWIN_CE_RTOL, TRAIN_TWIN_GNORM_RTOL = 1e-4, 1e-3
+TRAIN_TWIN_GRAD_RTOL = 1e-4
+# the twins' norm scales, biases and recurrence vectors are moved off
+# their init by N(0, 0.1), as the CPU tests move the reference's
+NUDGED = {"scale", "bq", "bk", "bv", "conv_b", "b_a", "b_i", "dt_bias",
+          "a_log", "d_skip", "norm_scale"}
+# qwen2-0.5b at full width through train(), bf16: the reference train
+# CLI's batch and sequence, 30 steps at lr 1e-3, held to the reference
+# test's criterion (tests/test_models.py: final ce < initial ce - 0.3)
+TRAIN_FULL_ARCH, TRAIN_FULL_STEPS, TRAIN_FULL_LR = "qwen2-0.5b", 30, 1e-3
+TRAIN_FULL_DROP = 0.3
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+# the other architectures in bf16, TRAIN_OTHER_STEPS steps each: three at
+# full width, six at their published widths with the depth cut to the
+# most layers whose params take at most TRAIN_MEM_BUDGET at Adam's
+# ADAM_BYTES a param (bf16 params and grads, old and new fp32 moments,
+# fp32 updates), one layer at least; where one layer's Adam step would
+# pass TRAIN_ADAM_LIMIT (internvl2-76b's 71 GB, deepseek-v2-236b's 120 GB)
+# the case takes SGD steps, ~10 B a param
+TRAIN_OTHER_FULL = ("gemma3-1b", "mamba2-780m", "musicgen-medium")
+TRAIN_OTHER_CUT = ("stablelm-3b", "recurrentgemma-9b", "deepseek-67b",
+                   "internvl2-76b", "mixtral-8x7b", "deepseek-v2-236b")
+TRAIN_OTHER_STEPS, TRAIN_OTHER_LR = 3, 3e-4
+TRAIN_MEM_BUDGET, TRAIN_ADAM_LIMIT, ADAM_BYTES = 40e9, 60e9, 24
+# Adam's first step moves an element with a nonzero grad by about lr
+# (TRAIN_OTHER_LR), over two bf16 spacings wherever |p| <= 2^-6
+ADAM_MOVABLE = 2.0 ** -6
+PEAK_BF16_FLOPS = 989e12       # bf16 tensor cores, dense
+
+
+def nudged_params(cfg, seed: int):
+    """``cfg``'s params drawn on the CPU from ``seed``, the vectors in
+    NUDGED moved by numpy N(0, 0.1)."""
+    from repro_torch.models.transformer import init_params
+    rng = np.random.default_rng(seed)
+
+    def nudge(node, key=None):
+        if isinstance(node, dict):
+            return {k: nudge(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [nudge(v) for v in node]
+        if key in NUDGED:
+            noise = torch.from_numpy(0.1 * rng.normal(size=tuple(node.shape)))
+            return (node.double() + noise).to(node.dtype)
+        return node
+
+    return nudge(init_params(cfg, "cpu", torch.Generator().manual_seed(seed)))
+
+
+def train_twin(dev, arch: str, moe_path: str, remat: bool,
+               microbatches: int) -> dict:
+    """``arch``'s reduced config in fp32: the first step's grads and
+    TRAIN_TWIN_STEPS train steps on the card and on the CPU, from the
+    same params and batches; the routing decisions too (with experts)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import lm_token_stream
+    from repro_torch.launch.steps import lm_value_and_grad, make_train_step
+    from repro_torch.launch.train import train_batches
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adam, single_model, warmup_cosine
+    cfg = dataclasses.replace(get_reduced(arch), param_dtype=torch.float32)
+    params = nudged_params(cfg, 24)
+    gen = torch.Generator().manual_seed(25)
+    stream = lm_token_stream(cfg.vocab_size, 4096, gen, "cpu")
+    it = train_batches(cfg, stream, TRAIN_TWIN_BATCH, TRAIN_TWIN_SEQ, 26, gen)
+    batches = [next(it) for _ in range(TRAIN_TWIN_STEPS)]
+    runs = {}
+    for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = tree_map(lambda t: t.to(device), params)
+        bs = [{n: v.to(device) for n, v in b.items()} for b in batches]
+        opt = single_model(adam(warmup_cosine(TRAIN_TWIN_LR, 0,
+                                              TRAIN_TWIN_STEPS)))
+        state = opt.init(p)
+        step = make_train_step(cfg, opt, moe_path=moe_path, remat=remat,
+                               microbatches=microbatches)
+        with recorded_routes() as routes:
+            _, _, _, grads = lm_value_and_grad(p, cfg, bs[0], moe_path,
+                                               remat)
+            metrics = []
+            for b in bs:
+                p, state, m = step(p, state, b)
+                metrics.append({n: float(v) for n, v in m.items()})
+        on = all(t.device.type == device.type for t in
+                 tree_leaves(p) + tree_leaves(list(state)))
+        runs[where] = {"grads": [g.cpu() for g in grads],
+                       "metrics": metrics, "on_device": on,
+                       "routes": [r.cpu() for r in routes]}
+    cpu, card = runs["cpu"], runs["card"]
+    label = (f"{cfg.name} fp32 twin ({moe_path if cfg.is_moe else 'dense'}"
+             f", remat={remat}, microbatches={microbatches})")
+    check(card["on_device"] and cpu["on_device"],
+          f"{label}: a param or optimizer tensor left its device")
+    ce = max(abs(a["ce"] - b["ce"]) / abs(b["ce"])
+             for a, b in zip(card["metrics"], cpu["metrics"]))
+    gnorm = max(abs(a["gnorm"] - b["gnorm"]) / abs(b["gnorm"])
+                for a, b in zip(card["metrics"], cpu["metrics"]))
+    grad = max(float((a - b).abs().max() / max(float(b.abs().max()), 1e-30))
+               for a, b in zip(card["grads"], cpu["grads"]))
+    same_routes = (len(card["routes"]) == len(cpu["routes"]) and all(
+        torch.equal(a, b) for a, b in zip(card["routes"], cpu["routes"])))
+    check(ce <= TRAIN_TWIN_CE_RTOL and gnorm <= TRAIN_TWIN_GNORM_RTOL,
+          f"{label}: per-step ce {ce:.3e}, gnorm {gnorm:.3e} off the CPU's "
+          f"(limits {TRAIN_TWIN_CE_RTOL:g}, {TRAIN_TWIN_GNORM_RTOL:g})")
+    check(grad <= TRAIN_TWIN_GRAD_RTOL,
+          f"{label}: first-step grads {grad:.3e} off the CPU's (limit "
+          f"{TRAIN_TWIN_GRAD_RTOL:g})")
+    check(same_routes, f"{label}: the card routes tokens to other experts "
+                       f"than the CPU")
+    decisions = sum(r.numel() // r.shape[-1] for r in cpu["routes"])
+    print(f"  {label}: ce {[round(m['ce'], 4) for m in card['metrics']]}, "
+          f"within {ce:.2e} of the CPU's per step, gnorm {gnorm:.2e}, "
+          f"first-step grads {grad:.2e}"
+          + (f", all {decisions} routing decisions equal" if decisions
+             else ""))
+    return {"label": label, "ce_rel": ce, "gnorm_rel": gnorm,
+            "grad_rel": grad, "routing_decisions": decisions,
+            "ce": [m["ce"] for m in card["metrics"]]}
+
+
+def train_bounds(params, tied: bool, tokens: int) -> dict:
+    """A train step's least time on the card, two readings: every FLOP
+    at the bf16 tensor-core peak; and the head's at the fp32 peak, as
+    ``lm_logits`` upcasts both operands. 6 FLOPs a param a token
+    (forward 2, backward 4), attention's score products left out; the
+    embedding's lookup none, a tied embedding's as the head."""
+    from repro_torch.models.common import tree_leaves
+    total = sum(t.numel() for t in tree_leaves(params))
+    head = params["embed" if tied else "lm_head"].numel()
+    body = total - params["embed"].numel() - (0 if tied else head)
+    flops_body, flops_head = 6 * body * tokens, 6 * head * tokens
+    return {"params": total, "body_params": body, "head_params": head,
+            "flops": flops_body + flops_head,
+            "bound_bf16_ms": (flops_body + flops_head) / PEAK_BF16_FLOPS * 1e3,
+            "bound_fp32_head_ms": (flops_body / PEAK_BF16_FLOPS
+                                   + flops_head / PEAK_FP32_FLOPS) * 1e3,
+            "adam_bytes_ms": ADAM_BYTES * total / PEAK_BYTES * 1e3}
+
+
+def train_full(dev) -> dict:
+    """qwen2-0.5b at full width through ``train()`` (bf16): the
+    criterion, ms a step after 2 warm-up steps, peak memory, the
+    checkpoint's save and a restore onto the card (bits equal), then one
+    step of a fresh Adam on the trained params under the profiler,
+    beside the step's bounds."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_tree_from_numpy
+    from repro_torch.data import lm_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train, train_batches
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adam, single_model, warmup_cosine
+    cfg = get_config(TRAIN_FULL_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = train(TRAIN_FULL_ARCH, reduced=False, steps=TRAIN_FULL_STEPS,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=TRAIN_FULL_LR,
+                    device=dev, verbose=False, ckpt=tmp)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        params, losses = out["params"], out["losses"]
+        label = (f"{TRAIN_FULL_ARCH} bf16 ({cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, vocab {cfg.vocab_size}), batch "
+                 f"{TRAIN_BATCH} x seq {TRAIN_SEQ}")
+        check(all(np.isfinite(losses)), f"{label}: a non-finite loss")
+        check(out["final_ce"] < out["initial_ce"] - TRAIN_FULL_DROP,
+              f"{label}: ce {out['initial_ce']:.4f} -> {out['final_ce']:.4f}"
+              f" in {TRAIN_FULL_STEPS} steps, not below initial - "
+              f"{TRAIN_FULL_DROP}")
+        path = os.path.join(tmp, "again.msgpack")
+        _, save_ms = timed(lambda: save_pytree(path, {"params": params,
+                                                      "losses": losses}))
+        mb = os.path.getsize(path) / 1e6
+        restored, restore_ms = timed(lambda: lm_tree_from_numpy(
+            restore_pytree(path)["params"], dev))
+        own = lm_tree_from_numpy(restore_pytree(os.path.join(
+            tmp, f"step_{TRAIN_FULL_STEPS}.msgpack"))["params"], dev)
+        for tree in (restored, own):
+            check(all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(tree), tree_leaves(params))),
+                  f"{label}: a restored checkpoint differs from the params")
+        del restored, own
+    step_ms = float(np.mean(out["step_s"][2:])) * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    opt = single_model(adam(warmup_cosine(TRAIN_FULL_LR, 3, 30)))
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, moe_path="dropless", remat=False)
+    it = train_batches(cfg, lm_token_stream(cfg.vocab_size, 200_000, gen,
+                                            dev), TRAIN_BATCH, TRAIN_SEQ, 0,
+                       gen)
+    step(params, state, next(it))              # warm-up
+    b = next(it)
+    prof = device_breakdown(f"{TRAIN_FULL_ARCH} one train step",
+                            lambda: step(params, state, b))
+    bounds = train_bounds(params, cfg.tie_embeddings, TRAIN_BATCH * TRAIN_SEQ)
+    print(f"  [{CARD}] {label}: ce {out['initial_ce']:.4f} -> "
+          f"{out['final_ce']:.4f} in {TRAIN_FULL_STEPS} steps (lr "
+          f"{TRAIN_FULL_LR:g}); {step_ms:.2f} ms a step back to back after "
+          f"2 warm-up steps (train(), one host sync a step), {tok_s:.0f} "
+          f"tokens/s; train() {wall:.2f} s; peak memory "
+          f"{peak / 1e9:.2f} GB; one step under the profiler: device "
+          f"{prof['device_ms']} ms, {prof.get('n_kernels')} kernels, busy "
+          f"{prof.get('busy_share')}; bound {bounds['bound_bf16_ms']:.3f} ms "
+          f"(6 x {bounds['body_params'] / 1e6:.1f} M + 6 x "
+          f"{bounds['head_params'] / 1e6:.1f} M head params x "
+          f"{TRAIN_BATCH * TRAIN_SEQ} tokens = {bounds['flops']:.3e} FLOPs "
+          f"at 989 TFLOP/s bf16), {bounds['bound_fp32_head_ms']:.3f} ms "
+          f"with the upcast head's FLOPs at 67 TFLOP/s fp32; Adam's "
+          f"{ADAM_BYTES} B a param over 3.35 TB/s "
+          f"{bounds['adam_bytes_ms']:.3f} ms; checkpoint {mb:.1f} MB saved "
+          f"in {save_ms / 1e3:.3f} s, restored onto the card in "
+          f"{restore_ms / 1e3:.3f} s, bits equal")
+    del params, state, out
+    torch.cuda.empty_cache()
+    return {"label": label, "losses": losses, "step_ms": step_ms,
+            "tokens_per_s": tok_s, "train_s": wall, "peak_gb": peak / 1e9,
+            "step_device_ms": prof["device_ms"],
+            "step_kernels": prof.get("n_kernels"),
+            "step_busy_share": prof.get("busy_share"),
+            "step_wall_ms": prof["wall_ms"], "ckpt_mb": mb,
+            "save_s": save_ms / 1e3, "restore_s": restore_ms / 1e3,
+            **bounds}
+
+
+def train_depth(cfg) -> tuple:
+    """The most layers (one at least) whose params take at most
+    TRAIN_MEM_BUDGET at ADAM_BYTES a param, and the params of that cut
+    and of the full depth."""
+    from repro_torch.models.transformer import init_params
+
+    def count(n):
+        c = dataclasses.replace(cfg, n_layers=n)
+        return c.param_count(init_params(c, device="meta"))
+
+    n = 1
+    while n < cfg.n_layers and ADAM_BYTES * count(n + 1) <= TRAIN_MEM_BUDGET:
+        n += 1
+    return n, count(n), count(cfg.n_layers)
+
+
+def train_other(dev, arch: str) -> dict:
+    """``arch`` in bf16 at its published widths (the depth cut where it
+    does not fit): TRAIN_OTHER_STEPS train steps on the card, the MoE
+    FFN dropless; the loss finite, the params moved, ms a step (the last
+    two), peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_token_stream
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_batches
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adam, sgd, single_model, warmup_cosine
+    cfg = get_config(arch)
+    if arch in TRAIN_OTHER_CUT:
+        n, n_params, full = train_depth(cfg)
+        cfg = dataclasses.replace(cfg, n_layers=n)
+        cut = (f" cut to {n} of {get_config(arch).n_layers} layers "
+               f"({full * ADAM_BYTES / 1e9:.1f} GB at {ADAM_BYTES} B a param "
+               f"at full depth, {n_params * ADAM_BYTES / 1e9:.1f} GB cut)")
+    else:
+        n_params = cfg.param_count(init_params(cfg, device="meta"))
+        cut = " at full depth"
+    use_adam = ADAM_BYTES * n_params <= TRAIN_ADAM_LIMIT
+    opt = single_model(adam(warmup_cosine(TRAIN_OTHER_LR, 0,
+                                          TRAIN_OTHER_STEPS))
+                       if use_adam else sgd(TRAIN_OTHER_LR))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    params = init_params(cfg, dev, gen)
+    strides = [max(1, t.numel() // 4096) for t in tree_leaves(params)]
+    before = [t.reshape(-1)[::s].clone()
+              for t, s in zip(tree_leaves(params), strides)]
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, moe_path="dropless", remat=False)
+    it = train_batches(cfg, lm_token_stream(cfg.vocab_size, 200_000, gen,
+                                            dev), TRAIN_BATCH, TRAIN_SEQ, 0,
+                       gen)
+    losses, secs = [], []
+    for _ in range(TRAIN_OTHER_STEPS):
+        b = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["ce"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    changed = [t.reshape(-1)[::s] != b0 for t, s, b0 in
+               zip(tree_leaves(params), strides, before)]
+    moved = sum(int(c.sum()) for c in changed) / sum(
+        b0.numel() for b0 in before)
+    label = f"{arch} bf16{cut}"
+    check(all(np.isfinite(losses)), f"{label}: a non-finite loss {losses}")
+    check(moved > 0, f"{label}: no param moved")
+    held = ""
+    if use_adam:
+        # every leaf whose sampled elements had a grad (mu != 0) and lie
+        # where one Adam step passes a bf16 spacing moved some of them
+        stuck, n_held = [], 0
+        for i, (c, s, b0, mu) in enumerate(zip(changed, strides, before,
+                                               tree_leaves(state.mu))):
+            due = (mu.reshape(-1)[::s] != 0) & (b0.abs() <= ADAM_MOVABLE)
+            if bool(due.any()):
+                n_held += 1
+                if not bool(c[due].any()):
+                    stuck.append(i)
+        check(not stuck, f"{label}: Adam moved no element of leaves {stuck}")
+        held = (f", each of the {n_held} of {len(changed)} leaves with "
+                f"movable sampled elements moved")
+    step_ms = float(np.mean(secs[1:])) * 1e3
+    print(f"  [{CARD}] {label}: {n_params / 1e9:.3f} B params, "
+          f"{'Adam' if use_adam else 'SGD'}, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}: ce {[round(x, 4) for x in losses]}, "
+          f"{moved:.1%} of sampled param elements moved{held}; "
+          f"{step_ms:.1f} ms a "
+          f"step (the last {TRAIN_OTHER_STEPS - 1}); peak memory "
+          f"{peak / 1e9:.2f} GB")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"label": label, "n_layers": cfg.n_layers, "params": n_params,
+            "optimizer": "adam" if use_adam else "sgd", "losses": losses,
+            "moved_share": moved, "step_ms": step_ms, "peak_gb": peak / 1e9}
+
+
+def lm_training_phase(dev) -> dict:
+    """LM training on the card: the ten reduced configs' fp32 twins,
+    qwen2-0.5b at full width through ``train()``, the other
+    architectures' bf16 steps; no kernel of the port launched."""
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.kernels import ops
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the twins and MoE routing need IEEE fp32")
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    out = {"twins": []}
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        paths = ("gshard", "dropless") if get_reduced(arch).is_moe \
+            else ("gshard",)
+        for path in paths:
+            for remat in (False, True):
+                out["twins"].append(train_twin(dev, arch, path, remat, 1))
+    out["twins"].append(train_twin(dev, *TRAIN_TWIN_MICROBATCHES, False, 2))
+    out["twins_s"] = time.perf_counter() - t0
+    print(f"  the {len(out['twins'])} fp32 twins took {out['twins_s']:.1f} s")
+    out["full"] = train_full(dev)
+    out["others"] = [train_other(dev, arch) for arch in
+                     TRAIN_OTHER_FULL + TRAIN_OTHER_CUT]
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"LM training launched {counts}")
+    return out
+
+
 def int8_wire(shape, dev, seed):
     """(q, scale, zp) of numpy-seeded log-softmax messengers, int8-encoded
     on the card by the port's codec."""
@@ -3162,6 +3553,13 @@ def main() -> int:
     moe_serving["wall_s"] = time.perf_counter() - t0
     print(f"  phase 21 wall time {moe_serving['wall_s']:.1f} s")
 
+    print("[22] LM training: fp32 twins, qwen2-0.5b at full width, the "
+          "other architectures in bf16")
+    t0 = time.perf_counter()
+    lm_training = lm_training_phase(dev)
+    lm_training["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 22 wall time {lm_training['wall_s']:.1f} s")
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -3222,6 +3620,7 @@ def main() -> int:
          "zoo_federation": zoo_fed, "resnet_federation": resnet_fed,
          "serving": serving, "checkpoints": checkpoints,
          "lm_serving": lm_serving, "moe_serving": moe_serving,
+         "lm_training": lm_training,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

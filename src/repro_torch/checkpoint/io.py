@@ -29,6 +29,15 @@ The files cross-load with the reference's ``repro.checkpoint``:
 
 Arrays are read without copying them out of the file's buffer, then put
 on the federation's device once.
+
+bf16 crosses both ways bit for bit. numpy has no bfloat16: a bf16
+tensor is written as the reference writes a bf16 array, ``dtype:
+"bfloat16"`` with its 2-byte bits, and such an entry (the port's or the
+reference's) is read through a ``uint16`` view and comes back as a CPU
+``torch.bfloat16`` tensor over the file's buffer, never through
+``np.dtype("bfloat16")`` (which only ``ml_dtypes`` registers). Every
+other array comes back as numpy; ``convert.lm_tree_from_numpy`` takes
+both kinds of leaf.
 """
 from __future__ import annotations
 
@@ -52,6 +61,10 @@ class ZooMismatchError(ValueError):
 
 
 def _encode(obj: Any):
+    if isinstance(obj, torch.Tensor) and obj.dtype == torch.bfloat16:
+        bits = obj.detach().cpu().contiguous().view(torch.int16).numpy()
+        return {"__nd__": list(obj.shape), "dtype": "bfloat16",
+                "data": bits.tobytes()}
     if isinstance(obj, torch.Tensor):
         obj = obj.detach().cpu().numpy()
     if isinstance(obj, np.ndarray):
@@ -69,6 +82,10 @@ def _encode(obj: Any):
 
 def _decode(obj: Any):
     if "__nd__" in obj:
+        if obj["dtype"] == "bfloat16":
+            bits = np.frombuffer(obj["data"], dtype=np.uint16)
+            return torch.from_numpy(bits.reshape(obj["__nd__"])).view(
+                torch.bfloat16)
         arr = np.frombuffer(obj["data"], dtype=np.dtype(obj["dtype"]))
         return arr.reshape(obj["__nd__"])
     if "__map__" in obj:

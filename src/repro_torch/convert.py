@@ -33,7 +33,9 @@ as its bits: numpy has no bfloat16, and ``np.asarray`` of a JAX bf16
 array has the ``bfloat16`` dtype of ``ml_dtypes``, which the port does
 not import. It is recognised by its name and read through a ``uint16``
 view; the way back writes ``uint16`` arrays, which the reference's side
-views as bf16.
+views as bf16. ``lm_opt_state_to_numpy``/``lm_opt_state_from_numpy``
+carry a ``single_model`` optimizer state (the 0-d step, moment trees)
+the same way.
 """
 from __future__ import annotations
 
@@ -264,6 +266,8 @@ def numpy_cohort_inputs(families: Mapping[str, Callable],
 
 
 def _leaf_from_numpy(a, device: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bf16 leaf of restore_pytree
+        return a.to(device, copy=True)
     a = np.array(a)                  # an own, writable, C-ordered copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(
@@ -283,7 +287,8 @@ def lm_tree_from_numpy(tree, device: Device = None):
     (``prefill``, ``init_cache``; ``{"groups": {"pos{i}": ...}, "rem":
     [...]}``), leaves as numpy, -> the port's tree of tensors on
     ``device`` (None: the card), dtypes kept (int32 ``k_pos``/``pos``
-    too), bf16 bit for bit."""
+    too), bf16 bit for bit. A leaf may also be a tensor already, as
+    ``restore_pytree`` returns a bf16 one: it is copied to ``device``."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_from_numpy(a, dev), tree)
 
@@ -292,3 +297,27 @@ def lm_tree_to_numpy(tree):
     """The port's LM params or decode cache -> the reference's tree of
     numpy arrays (bf16 leaves as ``uint16`` bits)."""
     return tree_map(_leaf_to_numpy, tree)
+
+
+def lm_opt_state_to_numpy(state: NamedTuple) -> Dict[str, Any]:
+    """A ``single_model`` optimizer state (``AdamState``/``SGDState``:
+    the 0-d step, moments as trees shaped like the params) -> the
+    reference's fields as numpy, None kept."""
+    return {name: None if value is None else lm_tree_to_numpy(value)
+            for name, value in state._asdict().items()}
+
+
+def lm_opt_state_from_numpy(fields: Mapping[str, Any], state_type,
+                            device: Device = None) -> NamedTuple:
+    """The reference's LM optimizer state (its fields as numpy: the 0-d
+    int32 step, ``mu``/``nu`` or ``momentum`` trees) -> a ``state_type``
+    (``AdamState``, ``SGDState``) for ``single_model``, on ``device``
+    (None: the card)."""
+    if set(fields) != set(state_type._fields):
+        raise ValueError(f"optimizer state fields {sorted(fields)} do not "
+                         f"match {state_type.__name__}'s "
+                         f"{sorted(state_type._fields)}")
+    return state_type(**{
+        name: None if fields[name] is None
+        else lm_tree_from_numpy(fields[name], device)
+        for name in state_type._fields})

@@ -1,8 +1,10 @@
-"""Per-client minibatch gathering for stacked cohort shards."""
+"""Per-client minibatch gathering for stacked cohort shards, and the LM
+trainer's next-token batches."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterator
 
+import numpy as np
 import torch
 
 
@@ -17,3 +19,24 @@ def cohort_batch(data: Dict[str, torch.Tensor],
     idx = idx.to(device=data["y"].device, dtype=torch.long)
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return {"x": data["x"][rows, idx], "y": data["y"][rows, idx]}
+
+
+def lm_batches(tokens: torch.Tensor, batch: int, seq: int,
+               seed: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
+    """Iterate {tokens, labels} next-token batches (B, seq) from a flat
+    stream, on the stream's device: each row a random (seq+1)-token
+    window, its starts drawn by numpy from ``seed`` as the reference
+    draws them, so the same stream and seed give the reference's batches
+    bit for bit. The stream must hold at least ``seq + 2`` tokens."""
+    n = tokens.shape[0]
+    if n < seq + 2:
+        raise ValueError(
+            f"token stream too short for seq={seq}: need at least seq + 2 "
+            f"= {seq + 2} tokens for a random (seq+1)-token window, got "
+            f"{n}; shorten seq or provide more tokens")
+    rng = np.random.default_rng(seed)
+    window = torch.arange(seq + 1, device=tokens.device)
+    while True:
+        starts = torch.from_numpy(rng.integers(0, n - seq - 1, size=batch))
+        rows = tokens[starts.to(tokens.device)[:, None] + window]
+        yield {"tokens": rows[:, :-1], "labels": rows[:, 1:]}

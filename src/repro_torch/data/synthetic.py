@@ -15,13 +15,19 @@ Three generators mirror Table I:
 
 Each sample is a (L,) float series (or flat feature vector) + int label.
 Client clustering is what SQMD's similarity graph is supposed to discover.
+
+``lm_token_stream`` makes the LM trainer's token stream (torch: the
+reference draws it with threefry, so the tests carry its stream across).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
+
+from repro_torch import Device, resolve_device
 
 
 @dataclasses.dataclass
@@ -139,3 +145,29 @@ def fmnist_like(seed: int = 2, samples_per_client: int = 500,
 DATASETS = {"sc_like": sc_like, "pad_like": pad_like,
             "fmnist_like": fmnist_like}
 
+
+# ---------------------------------------------------------------------------
+# LM token streams (for the LM trainer)
+# ---------------------------------------------------------------------------
+
+def lm_token_stream(vocab_size: int, n_tokens: int,
+                    generator: Optional[torch.Generator] = None,
+                    device: Device = None) -> torch.Tensor:
+    """A synthetic Zipf-ish Markov token stream (int32, on ``device``;
+    None: the card): the reference's construction, so a real LM learns
+    it (loss drops well below ln V) without a corpus on disk. Each token
+    is drawn from the Zipf prior p(r) ~ 1/r (inverse CDF, as
+    ``jax.random.choice`` draws) or, with probability 1/2, is the
+    deterministic mix ``(31 t[i-1] + 7 t[i-2]) mod V`` of the two draws
+    before it (rolled around the start). ``generator`` must live on the
+    device."""
+    dev = resolve_device(device)
+    ranks = torch.arange(1, vocab_size + 1, dtype=torch.float32, device=dev)
+    probs = 1.0 / ranks
+    cdf = torch.cumsum(probs / probs.sum(), dim=0)
+    u = torch.rand(n_tokens, generator=generator, device=dev)
+    base = torch.searchsorted(cdf, cdf[-1] * (1.0 - u)).clamp_(
+        max=vocab_size - 1)
+    shifted = torch.roll(base, 1) * 31 + torch.roll(base, 2) * 7
+    mix = torch.rand(n_tokens, generator=generator, device=dev) < 0.5
+    return torch.where(mix, shifted % vocab_size, base).to(torch.int32)

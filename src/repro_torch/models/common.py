@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.tree import tree_leaves, tree_map  # noqa: F401 (re-exported)
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -146,27 +148,6 @@ def full_pattern(cfg: ModelConfig) -> List[str]:
     """Every layer's mixer kind, in stack order."""
     pat = list(cfg.layer_pattern) * cfg.n_groups
     return pat + list(cfg.layer_pattern)[: cfg.n_remainder]
-
-
-# ---------------------------------------------------------------------------
-# Param trees (nested dicts and lists of tensors, the reference's pytrees)
-# ---------------------------------------------------------------------------
-
-def tree_map(fn: Callable, tree):
-    """``fn`` applied to every leaf of nested dicts and lists."""
-    if isinstance(tree, Mapping):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
-def tree_leaves(tree) -> List:
-    if isinstance(tree, Mapping):
-        return [x for v in tree.values() for x in tree_leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
 
 
 # ---------------------------------------------------------------------------

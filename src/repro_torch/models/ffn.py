@@ -140,14 +140,20 @@ def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
     ef = idx.reshape(t * k)
     order = torch.argsort(ef, stable=True)
     xs = xf[order // k]                                     # (t*k, D)
-    ys = torch.empty_like(xs)
-    start = 0
+    # one unbind a weight: its backward stacks the experts' grads once,
+    # where indexing expert i would backpropagate a zero-filled grad of
+    # all E experts' weights for each i; the experts' row blocks are
+    # contiguous and in order, so their outputs concatenate into ys
+    w_gate, w_up, w_down = (p[w].unbind(0)
+                            for w in ("w_gate", "w_up", "w_down"))
+    outs, start = [], 0
     for i, n in enumerate(torch.bincount(ef, minlength=e).tolist()):
         if n:
-            rows = slice(start, start + n)
-            h = swiglu(xs[rows] @ p["w_gate"][i], xs[rows] @ p["w_up"][i])
-            ys[rows] = h @ p["w_down"][i]
+            rows = xs[start:start + n]
+            h = swiglu(rows @ w_gate[i], rows @ w_up[i])
+            outs.append(h @ w_down[i])
             start += n
+    ys = torch.cat(outs)
     yw = ys * weights.reshape(t * k)[order][:, None].to(ys.dtype)
     per_choice = torch.empty_like(yw)
     per_choice[order] = yw                                  # (t*k, D)

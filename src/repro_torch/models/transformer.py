@@ -11,6 +11,11 @@ Three entry points:
   prefill(...)      full-sequence logits + a primed decode cache
   decode_step(...)  one token against the cache, updated in place
 
+and the training loss, ``lm_loss`` (``token_ce_loss`` plus the weighted
+MoE aux loss), whose ``remat=True`` recomputes each layer group (and
+each remainder layer) in the backward pass, as the reference's
+``jax.checkpoint`` does.
+
 ``moe_path`` picks the MoE FFN's full-sequence path ("gshard", the
 reference's default, or "dropless"); decode runs ``moe_decode``.
 """
@@ -20,6 +25,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import Device, resolve_device
 from repro_torch.models import attention as attn
@@ -28,8 +34,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import full_kv_to_cache, mla_kv_to_cache
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
-                                       embed_init, init_rmsnorm, rmsnorm,
-                                       tree_map)
+                                       embed_init, init_rmsnorm, rmsnorm)
+from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.models.frontends import frontend_dim
 
 
@@ -198,9 +204,16 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
 # forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _group(tree, g: int):
-    """Group ``g``'s slice of a tree stacked over groups (views)."""
-    return tree_map(lambda t: t[g], tree)
+def _groups(tree, n_groups: int) -> List:
+    """Every group's slice of a tree stacked over groups: one ``unbind``
+    a leaf (views), whose backward stacks the groups' grads once, where
+    ``n_groups`` slices would each backpropagate a zero-filled grad of
+    the whole stack."""
+    if n_groups == 0:
+        return []
+    per_leaf = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [s[g] for s in per_leaf])
+            for g in range(n_groups)]
 
 
 def _stack(trees: List) -> Params:
@@ -212,27 +225,41 @@ def _stack(trees: List) -> Params:
 
 
 def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor, moe_path: str, cache_seq: int):
+               positions: torch.Tensor, moe_path: str, cache_seq: int,
+               remat: bool = False):
     """Every layer over the full sequence: (x, aux, group caches, rem
     caches); aux is the layers' MoE aux losses summed in fp32, in stack
-    order."""
+    order. ``remat`` runs each group's whole pattern, and each remainder
+    layer, under one activation checkpoint (recomputed in the backward
+    pass; the stack draws nothing random, so no RNG state is kept)."""
     pattern = cfg.layer_pattern
+
+    def layers(units, x, aux):
+        caches = []
+        for p, kind in units:
+            x, a, c = apply_layer(p, cfg, kind, x, positions, moe_path,
+                                  cache_seq)
+            if a is not None:
+                aux = aux + a
+            caches.append(c)
+        return x, aux, caches
+
+    def run(units, x, aux):
+        if remat:
+            return checkpoint(layers, units, x, aux, use_reentrant=False,
+                              preserve_rng_state=False)
+        return layers(units, x, aux)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-
-    def layer(p, kind):
-        nonlocal x, aux
-        x, a, c = apply_layer(p, cfg, kind, x, positions, moe_path,
-                              cache_seq)
-        if a is not None:
-            aux = aux + a
-        return c
-
     group_caches: List[Params] = []
-    for g in range(cfg.n_groups):
-        gp = _group(params["groups"], g)
-        group_caches.append({f"pos{i}": layer(gp[f"pos{i}"], kind)
-                             for i, kind in enumerate(pattern)})
-    rem_caches = [layer(p, pattern[i]) for i, p in enumerate(params["rem"])]
+    for gp in _groups(params["groups"], cfg.n_groups):
+        x, aux, caches = run([(gp[f"pos{i}"], kind)
+                              for i, kind in enumerate(pattern)], x, aux)
+        group_caches.append({f"pos{i}": c for i, c in enumerate(caches)})
+    rem_caches = []
+    for i, p in enumerate(params["rem"]):
+        x, aux, (c,) = run([(p, pattern[i])], x, aux)
+        rem_caches.append(c)
     return x, aux, group_caches, rem_caches
 
 
@@ -240,14 +267,16 @@ def forward(params: Params, cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            moe_path: str = "gshard"):
+            moe_path: str = "gshard", remat: bool = False):
     """Returns (logits (B,S,V) fp32, aux loss () fp32): the sum of the
-    MoE layers' load-balance terms, 0 without experts."""
+    MoE layers' load-balance terms, 0 without experts. ``remat=True``
+    checkpoints each layer group and each remainder layer (activations
+    recomputed in the backward pass)."""
     x = embed_inputs(params, cfg, tokens, embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-    x, aux, _, _ = _run_stack(params, cfg, x, positions, moe_path, 0)
+    x, aux, _, _ = _run_stack(params, cfg, x, positions, moe_path, 0, remat)
     return lm_logits(params, cfg, x), aux
 
 
@@ -274,11 +303,47 @@ def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
     one, and a caller that needs the old cache keeps a copy."""
     x = embed_inputs(params, cfg, token, None)
     pattern = cfg.layer_pattern
-    for g in range(cfg.n_groups):
-        gp, gc = _group(params["groups"], g), _group(cache["groups"], g)
+    for gp, gc in zip(_groups(params["groups"], cfg.n_groups),
+                      _groups(cache["groups"], cfg.n_groups)):
         for i, kind in enumerate(pattern):
             x = apply_layer_decode(gp[f"pos{i}"], cfg, kind, x,
                                    gc[f"pos{i}"])
     for i, p in enumerate(params["rem"]):
         x = apply_layer_decode(p, cfg, pattern[i], x, cache["rem"][i])
     return lm_logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def token_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy, logits (B,S,V) fp32, labels (B,S):
+    logsumexp minus the label's logit (a gather picks what the
+    reference's one-hot contraction picks). With a mask, the masked mean
+    ``-sum(ll m) / max(sum m, 1)``."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    ll = picked - lse
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_loss(params: Params, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], moe_path: str = "gshard",
+            aux_weight: float = 0.01, remat: bool = False):
+    """(ce + aux_weight * aux, (ce, aux)) of ``batch`` ({tokens, labels}
+    and optionally embeds and a mask). When the logits are longer than
+    the labels (a frontend's frames first), the loss takes the text
+    tail."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"), moe_path=moe_path,
+                          remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    loss = token_ce_loss(logits, labels, batch.get("mask"))
+    return loss + aux_weight * aux, (loss, aux)
