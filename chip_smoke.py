@@ -188,10 +188,26 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     internvl2-76b's and deepseek-v2-236b's one layer take SGD), the cuts
     printed, 3 bf16 steps each: loss finite, params moved, ms a step,
     peak memory; no kernel of the port launched;
+23. client-axis sharding (``repro_torch.sharding``), on meshes that
+    repeat the one card (the engines' ``mesh=`` seam): phase 4's
+    repository through the row-strip Eq. 2 rebuild on 1, 2 and 8 shards,
+    each within 1e-6 of the unsharded ``pairwise_kl``, within B1's
+    tolerance of the plain version, with the same neighbors, its B1
+    launches (a strip a shard) and CUDA-event ms; phase 5's federation
+    and phase 14's straggler regime on 8 shards (ghost rows engaged),
+    each held against its CPU twin on 8 CPU shards (launches read around
+    the card's fit) and against the unsharded card run (accuracies and
+    repository within 1e-6, wire bytes equal, every ghost row unchanged
+    bit for bit); an 8-shard checkpoint restored unsharded and back
+    (evaluation within 1e-6); ``benchmarks/shard_scale.py``'s shapes
+    (one MLP cohort of N = 256, 1024, 4096 clients, ref 64, C 10, batch
+    16) on 1, 2 and 8 shards: step, upload and rebuild ms; with two
+    cards or more, ``FederationConfig(devices=2)`` over real cards, else
+    a line saying one card was visible;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-19), then the last line
+    its launches in phases 14-19 and 23), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
@@ -872,21 +888,37 @@ def fedmd_round_phase(dev) -> dict:
             "targets_max_abs_err": t_err, "profile": trace}
 
 
+def shard_mesh(dev, shards):
+    """None, or a client mesh of ``shards`` entries of the one device
+    ``dev`` (the engines' ``mesh=`` seam: every shard on one card)."""
+    from repro_torch.sharding import ClientMesh
+    if shards is None:
+        return None
+    d = torch.device(dev)
+    if d.type == "cuda":
+        d = torch.device("cuda", torch.cuda.current_device())
+    return ClientMesh((d,) * shards)
+
+
 def federation(dev, splits, ds, init_params, draws, logits_out, server,
-               protocol=None, static_weights=None):
+               protocol=None, static_weights=None, shards=None, seam=True):
     """The 5-round sc_like federation on ``dev`` under ``protocol``
-    (sqmd(q=16, k=8) by default) and ``server`` config."""
+    (sqmd(q=16, k=8) by default) and ``server`` config, its client axis
+    split into ``shards`` shards if given: of ``dev`` alone through the
+    ``mesh=`` seam, or without it (``seam=False``) over the first
+    ``shards`` cards."""
     from repro_torch.core import FederationConfig, FederationEngine, sqmd
     from repro_torch.models import hetero_mlp_zoo
     return FederationEngine.build(
         ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
         protocol or sqmd(q=16, k=8),
         config=FederationConfig(rounds=5, batch_size=32, eval_every=2,
-                                **server),
+                                devices=shards, **server),
         seed=1, callbacks=[logit_recorder(splits, logits_out)], device=dev,
         init_params=init_params,
         batch_indices=lambda step, ci: draws(step, ci),
-        static_weights=static_weights)
+        static_weights=static_weights,
+        mesh=shard_mesh(dev, shards) if seam else None)
 
 
 def logit_recorder(splits, logits_out):
@@ -898,7 +930,7 @@ def logit_recorder(splits, logits_out):
                 [splits[i].test_x for i in coh.client_ids])).to(
                     engine.fed.device)
             with torch.no_grad():
-                logits = coh.model(xs)
+                logits = coh.real_forward(xs)
             check(logits.device == xs.device,
                   f"{coh.family_name}'s forward left {xs.device}")
             out[coh.family_name] = logits.float().cpu().numpy()
@@ -906,11 +938,13 @@ def logit_recorder(splits, logits_out):
     return record
 
 
-def async_federation(dev, inputs, run: str, logits_out, protocol=None):
+def async_federation(dev, inputs, run: str, logits_out, protocol=None,
+                     shards=None):
     """The asynchronous sc_like federation of regime ``run`` (async_run)
     on ``dev``: the three MLP tiers, batch 16, two local steps a wake,
     evals every ASYNC_EVAL_EVERY virtual seconds, under ``protocol``
-    (sqmd(q=16, k=8) by default)."""
+    (sqmd(q=16, k=8) by default), split into ``shards`` shards if
+    given."""
     from repro_torch.core import (AsyncFederationEngine, FederationConfig,
                                   sqmd)
     from repro_torch.models import hetero_mlp_zoo
@@ -920,10 +954,12 @@ def async_federation(dev, inputs, run: str, logits_out, protocol=None):
         ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes), None,
         protocol or sqmd(q=16, k=8), arrivals=arrivals, trigger=trigger,
         config=FederationConfig(batch_size=16, local_steps=2,
-                                eval_every=ASYNC_EVAL_EVERY, **server),
+                                eval_every=ASYNC_EVAL_EVERY, devices=shards,
+                                **server),
         seed=1, callbacks=[logit_recorder(splits, logits_out)], device=dev,
         init_params=init_params,
-        batch_indices=lambda step, ci: draws(step, ci, 16))
+        batch_indices=lambda step, ci: draws(step, ci, 16),
+        mesh=shard_mesh(dev, shards))
 
 
 def federation_inputs():
@@ -957,7 +993,8 @@ def federation_inputs():
 
 def federation_phase(dev, server: dict, path: tuple, inputs,
                      protocol=None, static_weights=None,
-                     exact=None, run=None, required=None) -> dict:
+                     exact=None, run=None, required=None, shards=None,
+                     engines=None) -> dict:
     """The 5-round sc_like federation under ``protocol`` (sqmd(q=16, k=8)
     by default) with ``server`` (FederationConfig's delta/selection/codec
     settings) on the card, then on the CPU with the same weights and
@@ -967,7 +1004,9 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     during the card's fit, every kernel off ``path`` launched 0 times,
     and each kernel in ``exact`` launched exactly that many times; and
     unless both runs keep the same History bookkeeping (times, server
-    rounds, staleness, wire bytes) and eval logits within 1e-2."""
+    rounds, staleness, wire bytes) and eval logits within 1e-2. With
+    ``shards`` both runs split their client axis into that many shards of
+    their device; ``engines`` (a list) receives the card's engine."""
     from repro_torch.kernels import ops
     from repro_torch.optim import state_tensors
     ds, splits, init_params, draws = inputs
@@ -975,8 +1014,9 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     def build(d, logits_out):
         if run is None:
             return federation(d, splits, ds, init_params, draws, logits_out,
-                              server, protocol, static_weights)
-        return async_federation(d, inputs, run, logits_out, protocol)
+                              server, protocol, static_weights, shards)
+        return async_federation(d, inputs, run, logits_out, protocol,
+                                shards)
 
     def fit(eng):
         if run is None:
@@ -1009,9 +1049,9 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     if static_weights is not None:
         tensors += [fed.static_weights, eng.policy.neighbors,
                     eng.policy.slot_weights]
-    for coh in fed.cohorts:
-        tensors += [*coh.model.parameters(), *state_tensors(coh.opt_state),
-                    *coh.data.values()]
+    for sh in (sh for coh in fed.cohorts for sh in coh.shards):
+        tensors += [*sh.model.parameters(), *state_tensors(sh.opt_state),
+                    *sh.data.values()]
     if run is not None:
         # uploads still in flight past the horizon hold their payloads
         for *_, ev in eng.clock._heap:
@@ -1041,6 +1081,8 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
                 "bytes_down"):
         check(getattr(cpu_hist, key) == getattr(hist, key),
               f"card and CPU runs kept different History.{key}")
+    if engines is not None:
+        engines.append(eng)
     return {"launches": counts, "fit_s": wall, "mean_acc": hist.mean_acc,
             "cpu_mean_acc": cpu_hist.mean_acc, "logit_max_abs_diff": worst,
             "times": hist.times, "server_rounds": hist.server_rounds,
@@ -3386,6 +3428,315 @@ def b4_against(other: Path) -> int:
     (out / "b4_against.json").write_text(json.dumps(runs, indent=2))
     return 0
 
+# phase 23: client-axis sharding. A mesh of k entries of the one card
+# (the engines' mesh= seam) runs every shard on it; with two cards or
+# more, FederationConfig(devices=2) also runs over make_client_mesh's
+# real cards
+SHARD_MESHES = (1, 2, 8)
+SHARD_TOL = 1e-6       # the reference's bound for a sharded run
+# benchmarks/shard_scale.py:54-80's shapes: one MLP cohort (24 features,
+# one hidden layer of 64, 32 samples a client, 10 classes), a reference
+# set of 64, batch 16, at N clients
+SHARD_BENCH_N = (256, 1024, 4096)
+SHARD_FEAT, SHARD_HIDDEN, SHARD_SAMPLES = 24, 64, 32
+SHARD_REF, SHARD_CLASSES, SHARD_BATCH = 64, 10, 16
+
+
+def sharded_rebuild(dev) -> dict:
+    """Phase 4's repository (N=4096, R=240, C=10) through meshes of 1, 2
+    and 8 entries of the card: each within SHARD_TOL of the unsharded
+    ``pairwise_kl``, within B1's tolerance of the plain version, with the
+    unsharded rebuild's neighbors; its B1 launches and CUDA-event ms."""
+    from repro_torch.core import candidate_mask, select_neighbors_from_div
+    from repro_torch.core.similarity import divergence_matrix
+    from repro_torch.kernels import ops, ref
+    state, labels = server_repository(dev)
+    lp = state.repo_logp
+    n = lp.shape[0]
+    whole = ops.pairwise_kl(lp)
+    plain = torch.cat([ref.pairwise_kl_pair_ref(lp[i:i + ops.CHUNK_ROWS], lp)
+                       for i in range(0, n, ops.CHUNK_ROWS)])
+    cand = candidate_mask(ops.soft_ce(lp, labels), state.active, 64)
+    want = select_neighbors_from_div(whole, cand, 8)
+    atol, rtol = TOL["pairwise_kl_pair"]
+    out = {}
+    for k in SHARD_MESHES:
+        mesh = shard_mesh(dev, k)
+        ops.reset_launch_counts()
+        div = divergence_matrix(lp, mesh=mesh)
+        counts = ops.launch_counts()
+        # a strip a shard (each side split, one GEMM); one entry is the
+        # unsharded rebuild (two splits, a GEMM a CHUNK_ROWS chunk)
+        gemms = k if k > 1 else -(-n // ops.CHUNK_ROWS)
+        check(counts == launches_of(pairwise_kl_split=2 * k,
+                                    pairwise_kl_pair=gemms),
+              f"the {k}-shard rebuild launched {counts}")
+        err = float((div - whole).abs().max())
+        check(err <= SHARD_TOL, f"the {k}-shard rebuild is {err:.3e} from "
+                                f"the unsharded one")
+        perr, _ = errors(div, plain)
+        check(torch.allclose(div, plain, atol=atol, rtol=rtol),
+              f"the {k}-shard rebuild disagrees with the plain version")
+        graph = select_neighbors_from_div(div, cand, 8)
+        check(torch.equal(graph.neighbors, want.neighbors),
+              f"the {k}-shard rebuild selects other neighbors")
+        ms = cuda_ms(lambda: divergence_matrix(lp, mesh=mesh), iters=10)
+        equal = bool(torch.equal(div, whole))
+        print(f"  [{CARD}] Eq. 2 rebuild N={n} on {k} shard(s): {ms:.4f} "
+              f"ms, launches {counts}; max abs err against unsharded "
+              f"{err:.3e} (bit-equal {equal}), against the plain version "
+              f"{perr:.3e}; same neighbors")
+        out[str(k)] = {"ms": ms, "launches": counts,
+                       "max_abs_err_unsharded": err, "bit_equal": equal,
+                       "max_abs_err_plain": perr}
+    return out
+
+
+def ghost_rows_unchanged(eng, init_params) -> int:
+    """Fail unless every ghost row of every shard still holds its last
+    real client's initial params and a zero optimizer state (ghosts are
+    never trainable); returns the ghost rows checked."""
+    from repro_torch.convert import tensors_to_numpy
+    from repro_torch.optim import state_tensors
+    count = 0
+    for coh in eng.fed.cohorts:
+        layers = init_params[coh.family_name]["layers"]
+        for sh in coh.shards:
+            real = coh.real_rows(sh)
+            if real == sh.n_rows:
+                continue
+            ghost = tensors_to_numpy(
+                coh.module, [p[real:] for p in sh.model.parameters()])
+            for got, init in zip(ghost["layers"], layers):
+                for key in ("w", "b"):
+                    check(np.array_equal(got[key], np.broadcast_to(
+                        init[key][-1], got[key].shape)),
+                        f"a ghost row of {coh.family_name} moved")
+            check(all(bool((t[real:] == 0).all())
+                      for t in state_tensors(sh.opt_state)),
+                  f"a ghost row's optimizer state of {coh.family_name} "
+                  f"moved")
+            count += sh.n_rows - real
+    return count
+
+
+def hold_sharded(eng, base, init_params, what: str) -> dict:
+    """A sharded card run against the unsharded card run of the same
+    federation: accuracies within SHARD_TOL, each repository log-prob
+    within SHARD_TOL of its magnitude (at least 1), wire bytes and fires
+    equal, ghost rows unchanged.
+
+    The repository is held relative to its magnitude because cuBLAS
+    picks its batched-GEMM kernel by the batch count (``gemm_witness``:
+    11 stacked clients and the same rows in blocks of 2 differ in the
+    last bits), training carries that to the messengers, and log-probs
+    reach |x| > 8, where one fp32 ulp is already ~1e-6."""
+    h, b = eng.history, base.history
+    acc_err = max(abs(x - y) for x, y in zip(h.mean_acc + h.val_acc,
+                                             b.mean_acc + b.val_acc))
+    got, want = eng.server.repo_logp, base.server.repo_logp
+    diff = (got - want).abs()
+    repo_abs = float(diff.max())
+    repo_err = float((diff / want.abs().clamp(min=1.0)).max())
+    at = float(want.flatten()[diff.argmax()])
+    check(len(h.mean_acc) == len(b.mean_acc) and acc_err <= SHARD_TOL,
+          f"{what}: accuracies {acc_err:.3e} from the unsharded run")
+    check(repo_err <= SHARD_TOL,
+          f"{what}: repository {repo_err:.3e} of its magnitude from the "
+          f"unsharded run")
+    check(h.bytes_up == b.bytes_up and h.server_rounds == b.server_rounds,
+          f"{what}: wire bytes or fires differ from the unsharded run")
+    ghosts = ghost_rows_unchanged(eng, init_params)
+    pads = {c.family_name: c.n_pad for c in eng.fed.cohorts}
+    print(f"  [{CARD}] {what}: accuracies within {acc_err:.3e}, "
+          f"repository within {repo_abs:.3e} (at a log-prob of {at:.3f}; "
+          f"{repo_err:.3e} of its magnitude) of the unsharded card run, "
+          f"bytes up {h.bytes_up[-1]:.0f} equal; ghost rows {pads}, all "
+          f"{ghosts} unchanged bit for bit")
+    return {"acc_max_abs_diff": acc_err, "repo_max_abs_diff": repo_abs,
+            "repo_max_rel_diff": repo_err, "repo_diff_at": at,
+            "ghost_rows": ghosts, "n_pad": pads}
+
+
+def gemm_witness(dev) -> dict:
+    """Whether the card's batched GEMM gives a row the same bits at
+    another batch count: the mlp tiers' first layer on the reference set
+    (240 x 64 by 64 x 32) and its weight grad (64 x 256 by 256 x 32), 10,
+    11 and 16 stacked clients against the same rows in blocks of 2 (an
+    8-shard split's). Measured, not held."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for label, a_shape, b_shape in (("forward", (240, 64), (64, 32)),
+                                    ("weight grad", (64, 256), (256, 32))):
+        for n in (10, 11, 16):
+            a = torch.randn((n,) + a_shape, generator=gen, device=dev)
+            b = torch.randn((n,) + b_shape, generator=gen, device=dev)
+            parts = torch.cat([torch.bmm(a[i:i + 2], b[i:i + 2])
+                               for i in range(0, n, 2)])
+            out[f"{label}/{n}"] = float((torch.bmm(a, b) - parts)
+                                        .abs().max())
+    print(f"  [{CARD}] batched GEMM, n stacked rows against blocks of 2 "
+          f"(max abs diff): {out}")
+    return out
+
+
+def sharded_federations(dev, inputs) -> dict:
+    """Phase 5's federation and phase 14's straggler regime on an
+    8-entry mesh of the card, each held against its CPU twin on an
+    8-entry CPU mesh (``federation_phase``, launches read around the
+    card's fit) and against the unsharded card run."""
+    ds, splits, init_params, draws = inputs
+    out = {}
+    for label, run in (("sync", None), ("straggler-quorum-delta",
+                                        "straggler")):
+        print(f"  -- {label} on 8 shards")
+        server = {} if run is None else async_run(run, ds.n_clients)[2]
+        engines = []
+        res = federation_phase(dev, server, DENSE_PATH, inputs, run=run,
+                               shards=8, engines=engines)
+        if run is None:
+            base = federation(dev, splits, ds, init_params, draws, [],
+                              server)
+            base.fit(splits)
+        else:
+            base = async_federation(dev, inputs, run, [])
+            base.fit(splits, until=ASYNC_UNTIL)
+        res.update(hold_sharded(engines[0], base, init_params,
+                                f"{label}, 8 shards"))
+        out[label] = res
+    return out
+
+
+def sharded_checkpoints(dev, inputs) -> dict:
+    """Phase 5's federation on 8 shards, saved after 2 rounds, restored
+    into an unsharded card engine of other weights, whose save restores
+    into another 8-shard engine: evaluations within SHARD_TOL, real rows
+    bit for bit, one more round on both sharded engines alike."""
+    import tempfile
+    from repro_torch.checkpoint import restore_federation, save_federation
+    ds, splits, init_params, draws = inputs
+    other = {fam: {"layers": [{k: v * np.float32(0.5) + np.float32(0.1)
+                               for k, v in layer.items()}
+                              for layer in tree["layers"]]}
+             for fam, tree in init_params.items()}
+    sharded = federation(dev, splits, ds, init_params, draws, [], {},
+                         shards=8)
+    whole = federation(dev, splits, ds, other, draws, [], {})
+    again = federation(dev, splits, ds, other, draws, [], {}, shards=8)
+    for rnd in range(2):
+        sharded.run_round(rnd)
+    acc = sharded.evaluate(splits)
+    errs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src, dst, label in ((sharded, whole, "sharded -> unsharded"),
+                                (whole, again, "unsharded -> sharded")):
+            path = f"{tmp}/{label[0]}"
+            save_federation(path, src.fed, step=2, bus=src.bus,
+                            clients=src.clients)
+            restore_federation(path, dst.fed, bus=dst.bus,
+                               clients=dst.clients)
+            for a, b in zip(sharded.fed.cohorts, dst.fed.cohorts):
+                check(all(torch.equal(x, y) for x, y in zip(
+                    a.real_params.values(), b.real_params.values())),
+                    f"{label}: the real rows did not come back as saved")
+            errs[label] = float(np.abs(dst.evaluate(splits) - acc).max())
+            check(errs[label] <= SHARD_TOL, f"{label}: evaluation "
+                                            f"{errs[label]:.3e} apart")
+    sharded.run_round(2)
+    again.run_round(2)
+    errs["one more round"] = float(np.abs(
+        again.evaluate(splits) - sharded.evaluate(splits)).max())
+    check(errs["one more round"] <= SHARD_TOL,
+          "the restored 8-shard engine's next round differs")
+    print(f"  [{CARD}] 8-shard checkpoint after 2 rounds, restored "
+          f"unsharded and back: evaluation max abs diff {errs}")
+    return errs
+
+
+def shard_bench(dev) -> dict:
+    """benchmarks/shard_scale.py's shapes on the card: one MLP cohort of
+    N clients on 1, 2 and 8 shards of the card: a cohort step, an upload
+    and the Eq. 2 rebuild, CUDA-event ms over back-to-back calls."""
+    from repro_torch.core.client import (Cohort, sharded_cohort_step,
+                                         sharded_messenger_upload)
+    from repro_torch.core.similarity import divergence_matrix
+    from repro_torch.models.mlp import MLPConfig, mlp_family
+    from repro_torch.optim import sgd
+    from repro_torch.sharding import place_cohort_stacks
+    build = mlp_family(MLPConfig("bench", SHARD_FEAT, (SHARD_HIDDEN,),
+                                 SHARD_CLASSES))
+    opt = sgd(0.05, momentum=0.9)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out = {}
+    for n in SHARD_BENCH_N:
+        data = {"x": torch.randn((n, SHARD_SAMPLES, SHARD_FEAT),
+                                 generator=gen, device=dev),
+                "y": torch.randint(0, SHARD_CLASSES, (n, SHARD_SAMPLES),
+                                   generator=gen, device=dev)}
+        ref_x = torch.randn((SHARD_REF, SHARD_FEAT), generator=gen,
+                            device=dev)
+        logp = torch.log_softmax(torch.randn(
+            (n, SHARD_REF, SHARD_CLASSES), generator=gen, device=dev) * 2,
+            -1)
+        idx = torch.randint(0, SHARD_SAMPLES, (n, SHARD_BATCH),
+                            generator=gen, device=dev)
+        for k in SHARD_MESHES:
+            model = build(n, device=dev, generator=gen)
+            coh = Cohort.whole("bench", model,
+                               opt.init(list(model.parameters())),
+                               np.arange(n), data, opt)
+            mesh = shard_mesh(dev, k)
+            place_cohort_stacks(coh, mesh)
+            targets = torch.full((coh.n_rows, SHARD_REF, SHARD_CLASSES),
+                                 1.0 / SHARD_CLASSES, device=dev)
+            on = torch.arange(coh.n_rows, device=dev) < n
+            row = {
+                "step_ms": cuda_ms(lambda: sharded_cohort_step(
+                    coh, idx, ref_x, targets, on, 0.8, True), iters=5),
+                "upload_ms": cuda_ms(lambda: sharded_messenger_upload(
+                    coh, ref_x, "dense32", dev), iters=5),
+                "graph_ms": cuda_ms(lambda: divergence_matrix(
+                    logp, mesh=mesh), iters=5)}
+            print(f"  [{CARD}] shard_scale N={n} on {k} shard(s): step "
+                  f"{row['step_ms']:.3f} ms, upload {row['upload_ms']:.3f} "
+                  f"ms, graph {row['graph_ms']:.3f} ms")
+            out[f"{n}/{k}"] = row
+    return out
+
+
+def sharding_phase(dev, inputs) -> dict:
+    """Client-axis sharding on the card (phase 23)."""
+    t0 = time.perf_counter()
+    out = {"rebuild": sharded_rebuild(dev),
+           "gemm_witness": gemm_witness(dev),
+           "federations": sharded_federations(dev, inputs),
+           "checkpoints": sharded_checkpoints(dev, inputs),
+           "shard_scale": shard_bench(dev)}
+    if torch.cuda.device_count() >= 2:
+        ds, splits, init_params, draws = inputs
+        two = federation(dev, splits, ds, init_params, draws, [], {},
+                         shards=2, seam=False)
+        check([d.index for d in two.mesh.devices] == [0, 1],
+              "devices=2 did not take the first two cards")
+        two.fit(splits)
+        base = federation(dev, splits, ds, init_params, draws, [], {})
+        base.fit(splits)
+        out["two_cards"] = hold_sharded(two, base, init_params,
+                                        "devices=2 over two cards")
+    else:
+        print(f"  one card visible (torch.cuda.device_count() = "
+              f"{torch.cuda.device_count()}): FederationConfig(devices=2) "
+              f"over real cards not run")
+    out["launches"] = {
+        name: sum(r["launches"][name]
+                  for r in out["federations"].values())
+        for name in out["federations"]["sync"]["launches"]}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 23 wall time {out['wall_s']:.1f} s")
+    return out
+
 
 SOURCES = {
     "pairwise_kl_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
@@ -3560,6 +3911,10 @@ def main() -> int:
     lm_training["wall_s"] = time.perf_counter() - t0
     print(f"  phase 22 wall time {lm_training['wall_s']:.1f} s")
 
+    print("[23] client-axis sharding: the row-strip Eq. 2 rebuild, ghost-"
+          "padded federations, checkpoints across layouts")
+    sharding = sharding_phase(dev, inputs)
+
     # B4's rows: the wide route's GEMM and splits at the server-round
     # strip, the thin kernel at a real upload's forward strip (N=10^6),
     # whose ms is its device time (device_ms): a back-to-back loop of
@@ -3594,8 +3949,9 @@ def main() -> int:
     # and the asynchronous path's, read around each run of phases 14-15,
     # the zoo federations' of phases 16-17, the serving runs' of phase 18
     # and the checkpoint phase's rounds and div_cache rebuild
+    # and the sharded federations' of phase 23 (one B1 strip a shard)
     for res in [*async_fed.values(), *async_server.values(), zoo_fed,
-                resnet_fed, serving, checkpoints]:
+                resnet_fed, serving, checkpoints, sharding]:
         for name in launches:
             launches[name] += res["launches"][name]
     summary = {"kernels": [
@@ -3620,7 +3976,7 @@ def main() -> int:
          "zoo_federation": zoo_fed, "resnet_federation": resnet_fed,
          "serving": serving, "checkpoints": checkpoints,
          "lm_serving": lm_serving, "moe_serving": moe_serving,
-         "lm_training": lm_training,
+         "lm_training": lm_training, "sharding": sharding,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

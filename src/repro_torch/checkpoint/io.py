@@ -50,8 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import _msgpack
-from repro_torch.convert import (cohort_params_to_numpy, opt_state_from_numpy,
-                                 opt_state_to_numpy, tensors_from_numpy)
+from repro_torch.convert import (opt_state_from_numpy, opt_state_to_numpy,
+                                 tensors_from_numpy, tensors_to_numpy)
+from repro_torch.sharding import repad_cohort_arrays
 
 
 class ZooMismatchError(ValueError):
@@ -136,7 +137,9 @@ def save_federation(ckpt_dir: str, fed, step: int, bus=None,
     the server state, the wire codec names, the targets, and the port's
     generator state. ``bus`` (a ``ServerBus``) adds the trigger and
     staleness bookkeeping; ``clients`` (a ``ClientRuntime``) its inner-
-    step count and the clients ever woken."""
+    step count and the clients ever woken. A sharded cohort writes its
+    real rows only, so the file is the unsharded run's and restores onto
+    any mesh or none."""
     own = {"generator": fed.generator.get_state().numpy(),
            "generator_device": fed.generator.device.type}
     if clients is not None:
@@ -148,9 +151,10 @@ def save_federation(ckpt_dir: str, fed, step: int, bus=None,
         "cohorts": [{
             "family": c.family_name,
             "client_ids": np.asarray(c.client_ids),
-            "params": cohort_params_to_numpy(c.model),
-            "opt_state": {"__nt__": type(c.opt_state).__name__,
-                          **opt_state_to_numpy(c.model, c.opt_state)},
+            "params": tensors_to_numpy(c.module,
+                                       list(c.real_params.values())),
+            "opt_state": {"__nt__": type(c.real_opt_state).__name__,
+                          **opt_state_to_numpy(c.module, c.real_opt_state)},
         } for c in fed.cohorts],
         "wire": {"uplink": fed.uplink, "downlink": fed.downlink},
         "round": step,
@@ -190,8 +194,9 @@ def restore_federation(ckpt_dir: str, fed, step: Optional[int] = None,
     anything is assigned). Legacy files restore as ``dense32``; a file
     without ``div_cache`` gets it rebuilt from the repository (Eq. 2 on
     the federation's device); a file without a ``bus`` section zeroes the
-    given bus's counters; files without targets leave them untouched.
-    Returns the step."""
+    given bus's counters; files without targets leave them untouched. A
+    sharded cohort takes the file's rows ghost-padded again. Returns the
+    step."""
     from repro_torch.core.server import ServerState
     from repro_torch.core.wire import as_codec
     from repro_torch.kernels import ops
@@ -212,22 +217,20 @@ def restore_federation(ckpt_dir: str, fed, step: Optional[int] = None,
         # a file from before the delta path: rebuild the divergence cache
         # of the restored repository, so incremental updates stay exact
         server["div_cache"] = ops.pairwise_kl(server["repo_logp"])
-    # convert (and shape-check) every cohort before assigning anything
-    loaded = [(tensors_from_numpy(c.model, saved["params"],
-                                  list(c.model.parameters())),
+    # convert (and shape-check) every cohort's real rows before
+    # assigning anything
+    loaded = [(tensors_from_numpy(c.module, saved["params"],
+                                  list(c.real_params.values())),
                opt_state_from_numpy(
-                   c.model, {k: v for k, v in saved["opt_state"].items()
-                             if k != "__nt__"}, c.opt_state))
+                   c.module, {k: v for k, v in saved["opt_state"].items()
+                              if k != "__nt__"}, c.real_opt_state))
               for c, saved in zip(fed.cohorts, tree["cohorts"])]
     fed.server = ServerState(**server)
     fed.uplink, fed.downlink = uplink, downlink
     if "targets" in tree:
         fed.targets = on_device(tree["targets"])
     for c, (params, opt_state) in zip(fed.cohorts, loaded):
-        with torch.no_grad():
-            for p, t in zip(c.model.parameters(), params):
-                p.copy_(t)
-        c.opt_state = opt_state
+        repad_cohort_arrays(c, params, opt_state)
     if bus is not None:
         bus.load_state_dict(tree.get("bus"))
     own = tree.get("torch")

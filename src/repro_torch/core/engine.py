@@ -26,12 +26,19 @@ their latency and merge on arrival, and the bus fires per its
         trigger=Quorum(frac=0.5))
     history = async_engine.fit(splits, until=40.0)
 
-Everything lives on one device, the card unless ``device="cpu"`` is
-passed. Two optional seams carry another run's draws in:
-``init_params={family: stacked numpy params}`` and
+The server lives on one device, the card unless ``device="cpu"`` is
+passed. ``FederationConfig(devices=n)`` splits the client axis over a
+mesh of n devices of that type (``repro_torch.sharding``: on the card
+the first n cards, on the CPU n entries of it): each cohort's rows are
+ghost-padded and split into shards that step and upload on their own
+devices, and SQMD's full divergence rebuild splits into row strips; the
+run equals the unsharded one. Two optional seams carry another run's
+draws in: ``init_params={family: stacked numpy params}`` and
 ``batch_indices(step, cohort_idx) -> (n_c, B)``, ``step`` counting inner
 local steps across wakes; without them the port draws from a
-``torch.Generator`` seeded by ``seed``.
+``torch.Generator`` seeded by ``seed``. A third, ``mesh=``, takes an
+explicit ``ClientMesh`` in place of the one ``devices`` builds, so a
+test can run 8 shards on one card.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch.data.synthetic import FederatedDataset
 from repro_torch.models.mlp import MLPConfig, mlp_family
 from repro_torch.models.zoo import parse_assignment
 from repro_torch.optim import Optimizer, sgd
+from repro_torch.sharding import ClientMesh, make_client_mesh
 
 # {family: cohort builder} (a ``Zoo`` or any mapping of builders), or the
 # ``hetero_mlp_zoo`` dict of MLPConfig
@@ -138,6 +146,9 @@ class FederationConfig:
     # "ivf": the approximate top-K index (requires delta_graph)
     uplink: str = "dense32"         # messenger wire codec, client->server
     downlink: str = "dense32"       # target wire codec, server->client
+    devices: Optional[int] = None   # split the client axis over this many
+    # devices (cohort steps, uploads, the server's divergence rows); None
+    # is the one-device path
     verbose: bool = False
 
     def __post_init__(self):
@@ -147,6 +158,8 @@ class FederationConfig:
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got "
                                  f"{getattr(self, name)}")
+        if self.devices is not None and self.devices < 1:
+            raise ValueError(f"devices must be >= 1, got {self.devices}")
         if self.selection not in ("exact", "ivf"):
             raise ValueError(f"selection must be 'exact' or 'ivf', got "
                              f"{self.selection!r}")
@@ -162,6 +175,24 @@ class FederationConfig:
 
 
 RoundCallback = Callable[["FederationEngine", int, Dict[str, Any]], None]
+
+
+def _build_mesh(config: FederationConfig, device: torch.device,
+                mesh: Optional[ClientMesh]) -> Optional[ClientMesh]:
+    """The client mesh of ``config.devices`` on ``device``'s type (None:
+    the one-device path), or the given ``mesh``, which must have
+    ``config.devices`` entries of that type."""
+    if mesh is None:
+        if config.devices is None:
+            return None
+        return make_client_mesh(config.devices, device=device)
+    if config.devices != mesh.size:
+        raise ValueError(f"mesh has {mesh.size} entries but "
+                         f"config.devices is {config.devices}")
+    if mesh.devices[0].type != device.type:
+        raise ValueError(f"mesh on {mesh.devices[0].type} for a "
+                         f"federation on {device.type}")
+    return mesh
 
 
 def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
@@ -208,8 +239,9 @@ def _init_federation(ds: FederatedDataset, splits: Sequence[ClientSplit],
                 "y": torch.as_tensor(packed["y"], dtype=torch.long,
                                      device=dev)}
         opt = fam_opts.get(fam, default_opt)
-        cohorts.append(Cohort(fam, model, opt.init(list(model.parameters())),
-                              np.asarray(ids), data, opt))
+        cohorts.append(Cohort.whole(fam, model,
+                                    opt.init(list(model.parameters())),
+                                    ids, data, opt))
     if isinstance(static_weights, np.ndarray):
         static_weights = static_weights_from_numpy(static_weights, dev)
     elif static_weights is not None:
@@ -263,7 +295,8 @@ class FederationEngine:
                  schedule: Union[None, str, Schedule] = None,
                  config: Optional[FederationConfig] = None,
                  callbacks: Sequence[RoundCallback] = (),
-                 batch_indices: Optional[BatchIndices] = None):
+                 batch_indices: Optional[BatchIndices] = None,
+                 mesh: Optional[ClientMesh] = None):
         self.fed = federation
         self.policy = policy
         self.schedule = as_schedule(schedule)
@@ -273,11 +306,14 @@ class FederationEngine:
         self.clock: Clock = SyncClock()
         federation.uplink = self.config.uplink
         federation.downlink = self.config.downlink
+        self.mesh = _build_mesh(self.config, federation.device, mesh)
         self.clients = ClientRuntime(federation, policy, self.config,
-                                     batch_indices=batch_indices)
+                                     batch_indices=batch_indices,
+                                     mesh=self.mesh)
         self.bus = ServerBus(federation, policy, trigger="every-upload",
                              delta=self.config.delta_graph,
-                             selection=self.config.selection)
+                             selection=self.config.selection,
+                             mesh=self.mesh)
 
     @property
     def server(self) -> ServerState:
@@ -322,18 +358,22 @@ class FederationEngine:
               init_params: Optional[Mapping[str, Mapping]] = None,
               batch_indices: Optional[BatchIndices] = None,
               static_weights=None,
-              optimizer: Optional[Optimizer] = None) -> "FederationEngine":
+              optimizer: Optional[Optimizer] = None,
+              mesh: Optional[ClientMesh] = None) -> "FederationEngine":
         """``schedule`` is a Schedule, a registered name or None (always
         on); ``device=None`` is the card, and raises without one.
         ``static_weights`` is D-Dist's dense (N,N) graph (numpy or
         tensor); without it D-Dist draws one. ``optimizer`` overrides
-        every family's default."""
+        every family's default. ``mesh`` (a test seam) replaces the mesh
+        ``config.devices`` would build, e.g. 8 entries of one card; it
+        must have ``config.devices`` entries."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
             seed=seed, init_params=init_params,
             static_weights=static_weights, optimizer=optimizer)
         return cls(fed, pol, schedule, config=config,
-                   callbacks=callbacks, batch_indices=batch_indices)
+                   callbacks=callbacks, batch_indices=batch_indices,
+                   mesh=mesh)
 
     def run_round(self, rnd: int) -> None:
         """One round, in place: a wake of the available clients
@@ -398,7 +438,8 @@ class AsyncFederationEngine:
                  trigger: Union[None, str, Trigger] = None,
                  config: Optional[FederationConfig] = None,
                  callbacks: Sequence[RoundCallback] = (),
-                 batch_indices: Optional[BatchIndices] = None):
+                 batch_indices: Optional[BatchIndices] = None,
+                 mesh: Optional[ClientMesh] = None):
         if policy.uses_reference and policy.interval != 1:
             raise ValueError(
                 f"Protocol.interval={policy.interval} is a "
@@ -415,11 +456,14 @@ class AsyncFederationEngine:
         self.clock = Clock()
         federation.uplink = self.config.uplink
         federation.downlink = self.config.downlink
+        self.mesh = _build_mesh(self.config, federation.device, mesh)
         self.clients = ClientRuntime(federation, policy, self.config,
-                                     batch_indices=batch_indices)
+                                     batch_indices=batch_indices,
+                                     mesh=self.mesh)
         self.bus = ServerBus(federation, policy, trigger=as_trigger(trigger),
                              delta=self.config.delta_graph,
-                             selection=self.config.selection)
+                             selection=self.config.selection,
+                             mesh=self.mesh)
         self._seeded_until = -1.0
 
     server = FederationEngine.server
@@ -442,20 +486,22 @@ class AsyncFederationEngine:
               init_params: Optional[Mapping[str, Mapping]] = None,
               batch_indices: Optional[BatchIndices] = None,
               static_weights=None,
-              optimizer: Optional[Optimizer] = None
+              optimizer: Optional[Optimizer] = None,
+              mesh: Optional[ClientMesh] = None
               ) -> "AsyncFederationEngine":
         """``arrivals`` is an ArrivalProcess, a Schedule (shimmed), a
         registered name or None (always on, unit cadence); ``trigger`` a
         Trigger, a name or None (every upload). ``device=None`` is the
         card, and raises without one. ``optimizer`` overrides every
-        family's default."""
+        family's default; ``mesh`` is the test seam of
+        ``FederationEngine.build``."""
         fed, pol = _init_federation(
             ds, splits, families, assignment, policy, device=device,
             seed=seed, init_params=init_params,
             static_weights=static_weights, optimizer=optimizer)
         return cls(fed, pol, arrivals=arrivals, trigger=trigger,
                    config=config, callbacks=callbacks,
-                   batch_indices=batch_indices)
+                   batch_indices=batch_indices, mesh=mesh)
 
     def _seed_events(self, until: float) -> None:
         lo = self._seeded_until
@@ -565,7 +611,8 @@ def _pad_cohort_shards(shard_x: List[np.ndarray], shard_y: List[np.ndarray]
 def evaluate(fed: Federation, splits: Sequence[ClientSplit],
              which: str = "test") -> np.ndarray:
     """Per-client accuracy (N,) on the requested split; unequal shard
-    lengths are padded and masked, so no sample is dropped."""
+    lengths are padded and masked, so no sample is dropped. Sharded
+    cohorts evaluate their real rows only (``Cohort.real_forward``)."""
     dev = fed.device
     accs = np.zeros(fed.n_clients)
     for coh in fed.cohorts:
@@ -573,14 +620,14 @@ def evaluate(fed: Federation, splits: Sequence[ClientSplit],
         shard_y = [getattr(splits[i], f"{which}_y") for i in coh.client_ids]
         if len({len(y) for y in shard_y}) == 1:
             a = cohort_accuracy(
-                coh.model,
+                coh.real_forward,
                 torch.as_tensor(np.stack(shard_x), dtype=torch.float32,
                                 device=dev),
                 torch.as_tensor(np.stack(shard_y), device=dev))
         else:
             xs, ys, mask = _pad_cohort_shards(shard_x, shard_y)
             a = cohort_accuracy_masked(
-                coh.model, torch.as_tensor(xs, dtype=torch.float32,
+                coh.real_forward, torch.as_tensor(xs, dtype=torch.float32,
                                            device=dev),
                 torch.as_tensor(ys, device=dev),
                 torch.as_tensor(mask, device=dev))
@@ -598,7 +645,7 @@ def precision_recall(fed: Federation, splits: Sequence[ClientSplit],
         xs, ys, mask = _pad_cohort_shards(
             [splits[i].test_x for i in coh.client_ids],
             [splits[i].test_y for i in coh.client_ids])
-        pred = cohort_pred(coh.model, torch.as_tensor(
+        pred = cohort_pred(coh.real_forward, torch.as_tensor(
             xs, dtype=torch.float32, device=fed.device)).cpu().numpy()
         for c in range(n_classes):
             tp[c] += np.sum((pred == c) & (ys == c) & mask)

@@ -78,6 +78,12 @@ class ServerPolicy(abc.ABC):
     name: str = "?"                 # bound by @register_policy
     uses_reference: bool = True     # False: no messengers, no server round
     computes_similarity: bool = False  # True: graph.similarity -> state.sim
+    # Client mesh (repro_torch.sharding.ClientMesh), attached by the
+    # ServerBus when the engine runs sharded: a policy whose full graph
+    # build scales with the population (SQMD's O(N²·R·C) divergence)
+    # splits it into row strips over it. An attribute, not a hook
+    # argument, so build_graph overrides keep their signature.
+    mesh = None
     # Neighbor-selection strategy, attached by the ServerBus: "exact"
     # keeps the dense (N,N) divergence path; "ivf" lets a policy that
     # supports it (SQMD) run its delta rounds on the approximate

@@ -25,8 +25,10 @@ class SQMDPolicy(ServerPolicy):
         self._ivf: Optional[sim_mod.NeighborIndex] = None  # built lazily
 
     def build_graph(self, state, quality: torch.Tensor):
-        return self._select(state, quality,
-                            sim_mod.divergence_matrix(state.repo_logp))
+        # self.mesh (bus-attached) splits the O(N²·R·C) rebuild into row
+        # strips over the client mesh; None is the one-device rebuild
+        return self._select(state, quality, sim_mod.divergence_matrix(
+            state.repo_logp, mesh=self.mesh))
 
     def build_graph_delta(self, state, quality: torch.Tensor, uploaded):
         """O(u·N·R·C) round: scatter the uploaded rows' divergence strips

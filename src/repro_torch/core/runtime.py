@@ -36,10 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import wire
-from repro_torch.core.client import cohort_messenger_upload, cohort_step
+from repro_torch.core.client import (sharded_cohort_step,
+                                     sharded_messenger_upload)
 from repro_torch.core.server import (policy_round, staleness_summary,
                                      upload_messengers)
-from repro_torch.data.pipeline import cohort_batch
+from repro_torch.sharding import ClientMesh, cohort_mesh, place_cohort_stacks
 
 # batch_indices(step, cohort_idx) -> (n_c, B) sample indices; ``step``
 # counts inner local steps across wakes
@@ -250,19 +251,32 @@ class ClientRuntime:
     optimizer state). Each (inner step, cohort) draws its batch indices
     from ``batch_indices`` when given — the seam a parity run replays the
     reference's draws through, one split per cohort per step per wake —
-    else from the federation's generator."""
+    else from the federation's generator. Draws are always at the real
+    cohort size, (n_c, B).
+
+    With a client ``mesh`` each cohort is ghost-padded and split into one
+    shard a mesh entry at construction (``place_cohort_stacks``); each
+    shard steps and uploads on its own device, ghost rows stay outside
+    the trainable mask and never upload, and the uploads are gathered to
+    the server's device. The draws are the unsharded run's."""
 
     def __init__(self, federation, policy, config,
-                 batch_indices: Optional[BatchIndices] = None):
+                 batch_indices: Optional[BatchIndices] = None,
+                 mesh: Optional[ClientMesh] = None):
         self.fed = federation
         self.policy = policy
         self.config = config
         self.batch_indices = batch_indices
         self.step = 0                       # inner steps taken, all wakes
         self.ever_woken = np.zeros(federation.n_clients, bool)
+        if mesh is not None:
+            # each cohort on its own (sub)mesh: a cohort smaller than the
+            # mesh takes its first n_c entries, not ghost rows
+            for coh in federation.cohorts:
+                place_cohort_stacks(coh, cohort_mesh(mesh, coh.n_clients))
 
     def _indices(self, ci: int, coh) -> torch.Tensor:
-        n_c, m = coh.data["y"].shape
+        n_c, m = coh.n_clients, coh.shards[0].data["y"].shape[1]
         b = self.config.batch_size
         if self.batch_indices is not None:
             idx = np.array(self.batch_indices(self.step, ci), np.int64)
@@ -286,12 +300,14 @@ class ClientRuntime:
         avail = torch.as_tensor(mask_np, dtype=torch.bool, device=dev)
         for _ in range(self.config.local_steps):
             for ci, coh in enumerate(fed.cohorts):
-                batch = cohort_batch(coh.data, self._indices(ci, coh))
-                rows = torch.as_tensor(coh.client_ids, device=dev)
-                coh.opt_state, _ = cohort_step(
-                    coh.model, coh.optimizer, coh.opt_state, batch["x"],
-                    batch["y"], fed.ref_x, fed.targets[rows], avail[rows],
-                    self.policy.rho, use_ref)
+                rows = torch.as_tensor(coh.padded_ids, device=dev)
+                # ghost rows alias the last real client's id; force them
+                # out of the trainable mask regardless
+                on = avail[rows] & (torch.arange(coh.n_rows, device=dev)
+                                    < coh.n_clients)
+                sharded_cohort_step(coh, self._indices(ci, coh), fed.ref_x,
+                                    fed.targets[rows], on, self.policy.rho,
+                                    use_ref)
             self.step += 1
 
     @property
@@ -310,9 +326,10 @@ class ClientRuntime:
         for coh in fed.cohorts:
             if not mask_np[coh.client_ids].any():
                 continue
-            parts.append(cohort_messenger_upload(coh.model, fed.ref_x,
-                                                 codec=self.uplink))
-            rows.append(coh.client_ids)
+            got, ids = sharded_messenger_upload(coh, fed.ref_x, self.uplink,
+                                                fed.server.repo_logp.device)
+            parts += got
+            rows += ids
         if not parts:
             return self.uplink.encode(torch.zeros(
                 (n, r, c), device=fed.server.repo_logp.device))
@@ -340,18 +357,24 @@ class ServerBus:
     since the last fire, so the policy can take its incremental graph
     update (``build_graph_delta``) instead of the full rebuild.
     ``selection`` ("exact" or "ivf") is set on the policy, which reads it
-    in its delta rounds."""
+    in its delta rounds; a client ``mesh`` is set on it too, and its full
+    rebuild splits into one row strip a mesh entry."""
 
     def __init__(self, federation, policy,
                  trigger: Union[None, str, Trigger] = None,
                  delta: bool = False,
                  uplink: Union[None, str, wire.Codec] = None,
                  downlink: Union[None, str, wire.Codec] = None,
-                 selection: Optional[str] = None):
+                 selection: Optional[str] = None,
+                 mesh: Optional[ClientMesh] = None):
         self.fed = federation
         self.policy = policy
         self.trigger = as_trigger(trigger)
         self.delta = bool(delta)
+        if mesh is not None:
+            # a policy whose full rebuild splits over the client mesh
+            # reads it off itself, as it reads ``selection``
+            policy.mesh = mesh
         if selection is not None:
             policy.selection = selection
         # None => follow the federation's codec names (else dense32)

@@ -1,4 +1,4 @@
-"""Inter-model similarity (paper Def. 4, Eq. 2), single device.
+"""Inter-model similarity (paper Def. 4, Eq. 2).
 
 d_nm = (1/R) sum_j KL(s^n_j || s^m_j) — asymmetric; c_nm = 1/d_nm. The
 (N,N) divergence matrix is the server's O(N^2 R C) hot spot, computed by
@@ -27,13 +27,36 @@ import torch
 from repro_torch import Device, resolve_device
 from repro_torch.core import wire
 from repro_torch.kernels import ops
+from repro_torch.sharding import (ClientMesh, device_scope, ghost_pad_stack,
+                                  ghost_rows)
 
 EPS = 1e-8
 
 
-def divergence_matrix(messengers_logp: torch.Tensor) -> torch.Tensor:
-    """(N,R,C) log-messengers -> (N,N) fp32, D[n,m] = mean_j KL(n || m)."""
-    return ops.pairwise_kl(messengers_logp)
+def divergence_matrix(messengers_logp: torch.Tensor,
+                      mesh: Optional[ClientMesh] = None) -> torch.Tensor:
+    """(N,R,C) log-messengers -> (N,N) fp32, D[n,m] = mean_j KL(n || m).
+
+    With a client ``mesh`` of more than one entry the rebuild splits by
+    rows: the repository is padded with its last row to a multiple of the
+    mesh, and each entry computes its (N_pad/n_dev, N) strip with
+    ``ops.pairwise_kl_pair`` on its own device against its copy of the
+    whole repository. The strips meet on the repository's device and the
+    pad rows are sliced off. Each row is the one-device rebuild's math;
+    a GEMM over fewer rows may round differently on the card."""
+    if mesh is None or mesh.size == 1:
+        return ops.pairwise_kl(messengers_logp)
+    n = messengers_logp.shape[0]
+    padded = ghost_pad_stack(messengers_logp, ghost_rows(n, mesh.size))
+    rows = padded.shape[0] // mesh.size
+    home = messengers_logp.device
+    strips = []
+    for i, dev in enumerate(mesh.devices):
+        with device_scope(dev):
+            strip = ops.pairwise_kl_pair(padded[i * rows:(i + 1) * rows]
+                                         .to(dev), messengers_logp.to(dev))
+        strips.append(strip.to(home))
+    return torch.cat(strips)[:n]
 
 
 def similarity_matrix(divergence: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,19 @@ def cohort_batch(data: Dict[str, torch.Tensor],
     return {"x": data["x"][rows, idx], "y": data["y"][rows, idx]}
 
 
+def cohort_batch_padded(data: Dict[str, torch.Tensor],
+                        idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``cohort_batch`` for a ghost-padded stack: ``idx`` (n_real, B) is
+    drawn at the REAL row count, so the draws of the real rows do not
+    depend on the padding, then edge-replicated to data's rows. Ghost
+    rows therefore gather the last real client's batch from their own
+    (replicated) data rows."""
+    pad = data["y"].shape[0] - idx.shape[0]
+    if pad:
+        idx = torch.cat([idx, idx[-1:].expand(pad, idx.shape[1])])
+    return cohort_batch(data, idx)
+
+
 def lm_batches(tokens: torch.Tensor, batch: int, seq: int,
                seed: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
     """Iterate {tokens, labels} next-token batches (B, seq) from a flat

@@ -19,6 +19,12 @@ Event clock (virtual-time async runtime):
   python -m repro_torch.launch.federate --clock event \
       --arrivals bursty --trigger every-k --trigger-k 10 --until 60
 
+Client-axis sharding (cohort steps, uploads and the server's divergence
+rows split over a mesh; on the CPU, 8 entries of the CPU):
+
+  python -m repro_torch.launch.federate --devices 2 --device cuda
+  python -m repro_torch.launch.federate --devices 8 --device cpu
+
 (with ``src`` on ``PYTHONPATH``). Prints per-eval accuracy, then a JSON
 summary. ``--device`` defaults to ``cuda`` and fails without a card.
 ``--ckpt DIR`` saves the federation at the end as
@@ -155,6 +161,11 @@ def main(argv=None) -> dict:
                     help="target wire codec, server->client (same names)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--devices", type=int,
+                    help="split the client axis over this many devices "
+                         "(cohort steps, uploads, the server's divergence "
+                         "rows): the first N cards, or N entries of the "
+                         "CPU with --device cpu. Default: one device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", help="save the federation into this "
                                    "directory at the end")
@@ -165,6 +176,8 @@ def main(argv=None) -> dict:
         ap.error("--interval must be >= 1")
     if args.local_steps < 1:
         ap.error("--local-steps must be >= 1")
+    if args.devices is not None and args.devices < 1:
+        ap.error("--devices must be >= 1")
     if args.selection == "ivf" and not args.delta:
         ap.error("--selection ivf requires --delta (the approximate index "
                  "only exists on the incremental graph path)")
@@ -190,7 +203,8 @@ def main(argv=None) -> dict:
                               eval_every=args.eval_every,
                               delta_graph=args.delta,
                               selection=args.selection, uplink=args.uplink,
-                              downlink=args.downlink, verbose=True)
+                              downlink=args.downlink, devices=args.devices,
+                              verbose=True)
     t0 = time.time()
     if args.clock == "event":
         arrivals = make_arrivals(args, ds.n_clients, args.rounds)
@@ -236,6 +250,8 @@ def main(argv=None) -> dict:
         summary["schedule"] = args.schedule
     if hist.graph_stats:
         summary["graph"] = hist.graph_stats[-1]
+    if args.devices:
+        summary["devices"] = args.devices
     if args.zoo != ",".join(DEFAULT_ZOO):
         summary["zoo"] = args.zoo
     if args.assignment:

@@ -71,6 +71,9 @@ def main(argv=None) -> dict:
                     help="eval cadence bookkeeping (horizon rules the run)")
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--devices", type=int,
+                    help="split the client axis over this many devices; "
+                         "snapshots copy the real rows to --device")
     ap.add_argument("--uplink", default="dense32")
     ap.add_argument("--downlink", default="dense32")
     ap.add_argument("--rho", type=float, default=0.8)
@@ -135,6 +138,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.until <= 0:
         ap.error("--until must be > 0")
+    if args.devices is not None and args.devices < 1:
+        ap.error("--devices must be >= 1")
 
     ds = DATASETS[args.dataset](samples_per_client=args.samples_per_client,
                                 ref_size=args.ref_size)
@@ -150,7 +155,8 @@ def main(argv=None) -> dict:
                         interval=args.interval)
     config = FederationConfig(rounds=args.rounds, batch_size=args.batch,
                               eval_every=args.eval_every,
-                              uplink=args.uplink, downlink=args.downlink)
+                              uplink=args.uplink, downlink=args.downlink,
+                              devices=args.devices)
     arrivals = make_arrivals(args, ds.n_clients, args.rounds)
     trigger = make_trigger(args)
     engine = AsyncFederationEngine.build(
@@ -180,6 +186,8 @@ def main(argv=None) -> dict:
         "serving": runtime.summary(horizon=args.until),
         "wall_s": round(time.time() - t0, 1),
     }
+    if args.devices:
+        summary["devices"] = args.devices
     text = json.dumps(summary, indent=2)
     if args.json:
         with open(args.json, "w") as fh:

@@ -1,10 +1,10 @@
 """Versioned snapshots of the federation's personalized params.
 
-Training updates ``Cohort.model``'s stacked params in place every local
-step, so serving must never read the live tensors. ``publish`` copies
-each cohort's stacked params on their device (``detach().clone()`` of
-``named_parameters()``) together with the client -> (cohort, row)
-routing table, then swaps the store's current snapshot in one attribute
+Training updates each cohort's stacked params in place every local step,
+so serving must never read the live tensors. ``publish`` copies each
+cohort's real rows (``Cohort.real_params``: a sharded cohort's ghost rows
+sliced off, its shards gathered) onto the federation's device together
+with the client -> (cohort, row) routing table, then swaps the store's current snapshot in one attribute
 assignment (atomic under the GIL). A snapshot never changes after it is
 published, whatever the training does next. The copy is what a publish
 costs: ``SnapshotStore`` counts its bytes and host seconds.
@@ -91,14 +91,15 @@ class SnapshotStore:
         view_of = np.full(n, -1, np.int64)
         row_of = np.full(n, -1, np.int64)
         size = 0
+        dev = federation.device
         for vi, coh in enumerate(federation.cohorts):
             ids = np.asarray(coh.client_ids)
-            params = {k: p.detach().clone()
-                      for k, p in coh.model.named_parameters()}
+            params = {k: p.to(dev, copy=True)
+                      for k, p in coh.real_params.items()}
             size += sum(p.numel() * p.element_size()
                         for p in params.values())
             views.append(CohortView(
-                family_name=coh.family_name, module=coh.model,
+                family_name=coh.family_name, module=coh.module,
                 params=params, client_ids=ids, n_real=len(ids)))
             view_of[ids] = vi
             row_of[ids] = np.arange(len(ids))
