@@ -204,6 +204,15 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     16) on 1, 2 and 8 shards: step, upload and rebuild ms; with two
     cards or more, ``FederationConfig(devices=2)`` over real cards, else
     a line saying one card was visible;
+24. the static-analysis gate: ``python -m repro_torch.launch.analyze
+    --json`` on the card (every rule of ``repro_torch.analysis``, the
+    placement rules' probes on a mesh of the card, an empty baseline;
+    any violation or error fails the phase), each rule's status printed;
+    every hand kernel launched at the launch rule's odd probe shapes and
+    held against its plain version (phase 3's tolerances), with each
+    kernel's launches counted; and the cost model's operations and bytes
+    of B1-B4's plain versions at phase 3's, 6's and 8's shapes, beside
+    this run's bound of each;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -3738,6 +3747,176 @@ def sharding_phase(dev, inputs) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 24: the static-analysis gate on the card
+# --------------------------------------------------------------------------
+
+def analyze_gate() -> dict:
+    """``python -m repro_torch.launch.analyze --json`` on the card, in its
+    own process: each rule's status; fails on any violation or error."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.analyze",
+                           "--json"], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.stdout.strip().startswith("{"),
+          f"analyze printed no report (exit {proc.returncode}):\n"
+          f"{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    for r in report["rules"]:
+        print(f"  {r['family']:9s} {r['rule']:28s} {r['status']}"
+              + (f" ({r['n_findings']} findings)" if r["n_findings"] else ""))
+        for v in r["violations"]:
+            print(f"    {v['where']}: {v['message'][:200]}")
+        if r["status"] == "error":
+            print("    " + r["detail"].strip().splitlines()[-1][:300])
+    statuses = {r["rule"]: r["status"] for r in report["rules"]}
+    print(f"  [{CARD}] gate: {len(statuses)} rules, --device "
+          f"{report['device']}, {wall:.1f} s, exit {proc.returncode}")
+    check(proc.returncode == 0 and not report["failed"]
+          and len(statuses) == 15
+          and all(st == "ok" for st in statuses.values()),
+          f"the analysis gate failed: {statuses}")
+    return {"wall_s": wall, "statuses": statuses,
+            "device": report["device"]}
+
+
+def probe_launches(dev) -> list:
+    """Every hand kernel at the launch rule's odd probe shapes (no extent
+    a multiple of any tile, the thin kernel at every instance on both
+    sides and past the resident-grid cap), each held against its plain
+    version with phase 3's tolerances; the launches counted."""
+    from repro_torch.analysis import launch_rules as lr
+    from repro_torch.kernels import dequant_kl as dk
+    from repro_torch.kernels import ops, ref
+    u, m, r, c = lr.PROBE_U, lr.PROBE_M, lr.PROBE_R, lr.PROBE_C
+    rng = np.random.default_rng(24)
+
+    def logp(n):
+        return torch.from_numpy(log_softmax_np(
+            rng.normal(size=(n, r, c)) * 2.0)).to(dev)
+
+    a, b = logp(u), logp(m)
+    labels = torch.from_numpy(rng.integers(-1, c, r).astype(np.int32)) \
+        .to(dev)
+    w = torch.from_numpy(rng.random((u, u)).astype(np.float32)).to(dev)
+    w /= w.sum(1, keepdim=True)
+    probs = torch.exp(a)
+    cases = [("pairwise_kl_pair", ops.pairwise_kl_pair(a, b),
+              ref.pairwise_kl_pair_ref(a, b)),
+             ("pairwise_kl_pair", ops.pairwise_kl(a), ref.pairwise_kl_ref(a)),
+             ("soft_ce", ops.soft_ce(a, labels), ref.soft_ce_ref(a, labels)),
+             ("neighbor_mean_dense_w", ops.neighbor_mean(w, probs),
+              ref.neighbor_mean_ref(w, probs))]
+    for slots in lr.PROBE_SLOTS:
+        nbrs = torch.from_numpy(rng.integers(0, u, (u, slots))
+                                .astype(np.int32)).to(dev)
+        sw = torch.full((u, slots), 1.0 / slots, device=dev)
+        cases.append(("neighbor_gather", ops.neighbor_gather(nbrs, sw, probs),
+                      ref.neighbor_gather_ref(nbrs, sw, probs)))
+    qa, sa, za, la = int8_operands((u, r, c), dev, 25)
+    qb, sb, zb, lb = int8_operands((m, r, c), dev, 26)
+    cases.append(("int8_pairwise_kl_pair",
+                  ops.int8_pairwise_kl_pair(qa, sa, za, qb, sb, zb),
+                  dk.plain(qa, sa, qb, sb)))
+    cases.append(("int8_pairwise_kl_pair", ops.int8_pairwise_kl(qa, sa, za),
+                  dk.plain(qa, sa, qa, sa)))
+    for many in lr.PROBE_MANY:
+        qm, sm, zm, lm = int8_operands((many, r, c), dev, 27)
+        for t in lr.PROBE_THIN:
+            qt, st, zt, lt = qa[:t], sa[:t], za[:t], la[:t]
+            cases.append(("int8_pairwise_kl_pair",
+                          ops.int8_pairwise_kl_pair(qt, st, zt, qm, sm, zm),
+                          dk.plain(qt, st, qm, sm)))
+            cases.append(("int8_pairwise_kl_pair",
+                          ops.int8_pairwise_kl_pair(qm, sm, zm, qt, st, zt,
+                                                    lse_a=lm, lse_b=lt),
+                          dk.plain(qm, sm, qt, st, lm, lt)))
+    return cases
+
+
+def probe_phase(dev) -> dict:
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    cases = probe_launches(dev)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    worst = {}
+    for name, got, want in cases:
+        atol, rtol = TOL[name]
+        ea, _ = errors(got.float(), want.float())
+        check(torch.allclose(got, want, atol=atol, rtol=rtol),
+              f"{name} at a probe shape {tuple(got.shape)}: max_abs={ea:.3e}"
+              f" beyond atol={atol:g} rtol={rtol:g}")
+        worst[name] = max(worst.get(name, 0.0), ea)
+    print(f"  [{CARD}] {len(cases)} probe launches held to their plain "
+          f"versions; max abs error by tolerance: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    print("  launches at the probe shapes: " + json.dumps(launches))
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was not launched at the probe shapes: {launches}")
+    return {"cases": len(cases), "max_abs_err": worst,
+            "launches": launches}
+
+
+def cost_beside_bounds(rows: dict) -> dict:
+    """The cost model's count (repro_torch.analysis.cost) of B1-B4's plain
+    versions at the shapes phase 3, 6 and 8 time them at, beside the
+    bound this run computed for each: model FLOPs, its memory traffic and
+    its argument + result bytes, and the larger of those bytes over
+    PEAK_BYTES and the FLOPs over the fp32 peak."""
+    from repro_torch.analysis.cost import interp
+    from repro_torch.kernels import ref
+
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    n, r, c = SERVER
+    strip = min(n, 2048)
+    k = 8
+    shapes = {
+        "pairwise_kl_pair": (ref.pairwise_kl_pair_ref,
+                             (t(strip, r, c), t(n, r, c))),
+        "soft_ce": (ref.soft_ce_ref, (t(n, r, c), t(r, dtype=torch.int32))),
+        "neighbor_gather": (ref.neighbor_gather_ref,
+                            (t(n, k, dtype=torch.int32), t(n, k),
+                             t(n, r, c))),
+        "neighbor_mean": (ref.neighbor_mean_ref, (t(n, n), t(n, r, c))),
+        "int8_pairwise_kl_pair": (ref.int8_pairwise_kl_pair_ref,
+                                  (t(strip, r, c, dtype=torch.uint8),
+                                   t(strip, r), t(strip, r),
+                                   t(n, r, c, dtype=torch.uint8), t(n, r),
+                                   t(n, r)))}
+    out = {}
+    for name, (fn, args) in shapes.items():
+        s = interp.summary_of(fn, *args)
+        io = s.arg_bytes + s.out_bytes
+        model_ms = max(io / PEAK_BYTES, s.flops / PEAK_FP32_FLOPS) * 1e3
+        row = rows.get(name, {})
+        out[name] = {"flops": s.flops, "matmul_flops": s.matmul_flops,
+                     "bytes": s.bytes, "io_bytes": io,
+                     "model_bound_ms_fp32": model_ms,
+                     "run_bound_ms": row.get("bound_ms"),
+                     "run_bound_by": row.get("bound_by")}
+        print(f"  {name}: model {s.flops:.4e} FLOPs ({s.matmul_flops:.4e} "
+              f"matmul), {s.bytes:.4e} B traffic, {io:.4e} B args+result; "
+              f"fp32 bound {model_ms:.4f} ms beside this run's bound "
+              f"{row.get('bound_ms')} ms ({row.get('bound_by')}) [{CARD}]")
+    return out
+
+
+def analysis_phase(dev, rows: dict) -> dict:
+    t0 = time.perf_counter()
+    gate = analyze_gate()
+    probes = probe_phase(dev)
+    cost = cost_beside_bounds(rows)
+    wall = time.perf_counter() - t0
+    print(f"  phase 24 wall time {wall:.1f} s")
+    return {"gate": gate, "probes": probes, "cost": cost, "wall_s": wall}
+
+
 SOURCES = {
     "pairwise_kl_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                           "src/repro/kernels/pairwise_kl.py:37"),
@@ -3954,6 +4133,10 @@ def main() -> int:
                 resnet_fed, serving, checkpoints, sharding]:
         for name in launches:
             launches[name] += res["launches"][name]
+
+    print("[24] the static-analysis gate, the kernels at the launch rule's "
+          "probe shapes, the cost model beside the bounds")
+    analysis = analysis_phase(dev, rows)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -3977,7 +4160,7 @@ def main() -> int:
          "serving": serving, "checkpoints": checkpoints,
          "lm_serving": lm_serving, "moe_serving": moe_serving,
          "lm_training": lm_training, "sharding": sharding,
-         "wall_s": time.perf_counter() - t_start},
+         "analysis": analysis, "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -1,0 +1,135 @@
+"""Launch auditor: every hand kernel's geometry must cover its operands.
+
+The reference intercepts ``pallas_call`` and checks that each block shape
+divides its operand. A CUDA kernel instead masks its ragged edge, so the
+port checks what a grid can get wrong there: each hand kernel's launch
+comes from one pure-Python ``*_args`` function beside its wrapper
+(``repro_torch.kernels``), which the wrapper passes to the card and the
+entry point launches as given; its ``*_geometry`` twin describes that
+launch for this rule. On odd probe shapes, no extent a multiple
+of any tile, the rule holds each geometry to four things:
+
+  * grid x tile (x grid-stride passes) covers every extent,
+  * no block lies wholly outside every extent (an idle block on the
+    first pass is a grid sized for the wrong operand),
+  * dynamic shared memory fits the 227 KB a block may take, and the
+    block and grid fit the card's limits,
+  * every global stride of a ``CUtensorMap`` operand (the 3xTF32 GEMM's
+    planes) is a multiple of 16 bytes.
+
+The geometry is pure Python, so the rule runs on the CPU. ``chip_smoke``
+launches each kernel at the same probe shapes on the card and holds it
+against its plain version.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Tuple
+
+from repro_torch.analysis.registry import (AnalysisContext, Violation,
+                                           register_rule)
+from repro_torch.kernels.geometry import (H100_SMS, SMEM_PER_BLOCK,
+                                          TMA_STRIDE_ALIGN, Geometry)
+
+# odd probe shapes: rows of the two operands, R and C (K = 21, no tile's
+# multiple), neighbor slots, thin rows (every thin instance 1..16), the
+# thin kernel's many side (one pass, and past the resident-grid cap), and
+# the resident blocks an SM the occupancy calculator may report
+PROBE_U, PROBE_M = 131, 257
+PROBE_R, PROBE_C = 3, 7
+PROBE_SLOTS = (5, 4096)
+PROBE_THIN = (1, 2, 3, 5, 9, 13, 16)
+PROBE_MANY = (1031, 100_003)
+PROBE_BLOCKS_PER_SM = (1, 8)
+
+MAX_THREADS = 1024
+MAX_GRID_YZ = 65535
+
+
+def probe_geometries(sms: int = H100_SMS) -> List[Tuple[str, Geometry]]:
+    """(label, geometry) of every hand kernel's launch at the probe
+    shapes, built from the ``*_args`` the wrappers launch with."""
+    from repro_torch.kernels import dequant_kl as dk
+    from repro_torch.kernels import neighbor_gather as ng
+    from repro_torch.kernels import neighbor_mean as nm
+    from repro_torch.kernels import pairwise_kl as pk
+    from repro_torch.kernels import soft_ce as sc
+    u, m, r, c = PROBE_U, PROBE_M, PROBE_R, PROBE_C
+    k = r * c
+    k_pad = -(-k // pk.BK) * pk.BK
+    n_pad = -(-u // pk.BK) * pk.BK
+    out = [
+        (f"rows={u}", pk.split_geometry(u)),
+        (f"U={u},M={m}", pk.gemm_geometry(u, m, k_pad)),
+        # the dense Eq. 5 route: W's split over (N, N), S's transposing
+        # split, the plain-store GEMM of (N, Kp) by (RC, Kp)
+        (f"W rows={u}", pk.split_geometry(u)),
+        (f"N={u},RC={k}", nm.split_geometry(k, n_pad)),
+        (f"N={u},RC={k}", pk.gemm_geometry(u, k, n_pad)),
+        (f"N={u}", sc.launch_geometry(u)),
+        (f"rows={u}", dk.split_geometry(u)),
+    ]
+    out += [(f"N={u},K={slots}", ng.launch_geometry(u, slots))
+            for slots in PROBE_SLOTS]
+    for t in PROBE_THIN:
+        for many in PROBE_MANY:
+            for per_sm in PROBE_BLOCKS_PER_SM:
+                for have_lt in (False, True):
+                    out.append((f"T={t},M={many},blocks/SM={per_sm},"
+                                f"lt={int(have_lt)}",
+                                dk.thin_geometry(t, many, r, c, have_lt, sms,
+                                                 per_sm)))
+    return out
+
+
+def check_geometry(label: str, geo: Geometry,
+                   rule: str = "launch-geometry") -> List[Violation]:
+    """The four checks of the module docstring on one launch."""
+    where = f"{geo.kernel}[{label}]"
+    out = []
+    if any(g < 1 for g in geo.grid) or max(geo.grid[1:]) > MAX_GRID_YZ:
+        out.append(Violation(rule, f"{where}#grid",
+                             f"grid {geo.grid} outside 1..{MAX_GRID_YZ} "
+                             f"(y, z)"))
+    threads = geo.block[0] * geo.block[1] * geo.block[2]
+    if not 1 <= threads <= MAX_THREADS:
+        out.append(Violation(rule, f"{where}#block",
+                             f"{threads} threads a block (at most "
+                             f"{MAX_THREADS})"))
+    for cov in geo.covers:
+        g = geo.grid[cov.axis]
+        if g * cov.tile * cov.passes < cov.extent:
+            out.append(Violation(
+                rule, f"{where}#{cov.operand}",
+                f"grid axis {cov.axis}: {g} blocks x {cov.tile} x "
+                f"{cov.passes} pass(es) = {g * cov.tile * cov.passes} < "
+                f"extent {cov.extent}: the ragged edge is never computed"))
+        elif (g - 1) * cov.tile >= cov.extent:
+            out.append(Violation(
+                rule, f"{where}#{cov.operand}",
+                f"grid axis {cov.axis}: block {g - 1} starts at "
+                f"{(g - 1) * cov.tile}, past extent {cov.extent}: a block "
+                f"wholly outside its operand"))
+    if geo.smem > SMEM_PER_BLOCK:
+        out.append(Violation(rule, f"{where}#smem",
+                             f"{geo.smem} bytes of dynamic shared memory, "
+                             f"more than the {SMEM_PER_BLOCK} a block may "
+                             f"take"))
+    for tm in geo.tensor_maps:
+        bad = [s for s in tm.strides if s % TMA_STRIDE_ALIGN]
+        if bad:
+            out.append(Violation(
+                rule, f"{where}#{tm.operand}",
+                f"CUtensorMap {tm.operand} (dims {tm.dims}) has global "
+                f"strides {tm.strides} bytes; TMA needs multiples of "
+                f"{TMA_STRIDE_ALIGN}"))
+    return out
+
+
+@register_rule("launch-geometry", family="launch")
+def launch_geometry(ctx: AnalysisContext) -> Iterable[Violation]:
+    """Every hand kernel's launch geometry covers its operands.
+
+    At odd probe shapes: no idle block, shared memory within a block's,
+    TMA strides 16-byte aligned."""
+    for label, geo in probe_geometries():
+        yield from check_geometry(label, geo)

@@ -52,28 +52,44 @@ def _topk_weights(sub: torch.Tensor, pool: torch.Tensor, k: int):
     return nbrs, w, vals
 
 
-def _select_pool(similarity: torch.Tensor, candidates: torch.Tensor,
-                 k: int):
-    """Top-k over the candidate columns only, or None for an empty pool.
-
-    The pool is padded with unrealizable slots (client 0, scored -BIG) up
-    to k columns, so a pool smaller than k still yields k slots, ordered
-    as the reference's padded pool orders them."""
+def candidate_pool(candidates: torch.Tensor, k: int):
+    """The candidate columns, padded with unrealizable slots (client 0)
+    up to k columns: (pool (B,) indices, valid (B,) bool), or None for an
+    empty pool. The pool's size depends on the mask's values, so it is
+    staged here, apart from the selection over it."""
     pool = torch.nonzero(candidates).flatten()
     if pool.numel() == 0 or k == 0:
         return None
-    n = similarity.shape[0]
     size = pool.numel()
     pad = max(k - size, 0)
     valid = torch.ones(size + pad, dtype=torch.bool, device=pool.device)
     if pad:
         pool = torch.cat([pool, pool.new_zeros(pad)])
         valid[size:] = False
+    return pool, valid
+
+
+def select_from_pool(similarity: torch.Tensor, pool: torch.Tensor,
+                     valid: torch.Tensor, k: int):
+    """Top-k over the pool's columns (``candidate_pool``), the invalid
+    slots scored -BIG, so a pool smaller than k still yields k slots,
+    ordered as the reference's padded pool orders them."""
+    n = similarity.shape[0]
     sub = similarity[:, pool]
     rows = torch.arange(n, device=pool.device)[:, None]
     ok = valid[None, :] & (pool[None, :] != rows)       # no self-edges
     sub = torch.where(ok, sub, torch.full_like(sub, -BIG))
     return _topk_weights(sub, pool, k)
+
+
+def _select_pool(similarity: torch.Tensor, candidates: torch.Tensor,
+                 k: int):
+    """Top-k over the candidate columns only, or None for an empty
+    pool."""
+    staged = candidate_pool(candidates, k)
+    if staged is None:
+        return None
+    return select_from_pool(similarity, *staged, k)
 
 
 def _empty(n: int, k: int, device) -> tuple:

@@ -40,6 +40,7 @@ from repro_torch.core.client import (sharded_cohort_step,
                                      sharded_messenger_upload)
 from repro_torch.core.server import (policy_round, staleness_summary,
                                      upload_messengers)
+from repro_torch.data.pipeline import draw_batch_indices
 from repro_torch.sharding import ClientMesh, cohort_mesh, place_cohort_stacks
 
 # batch_indices(step, cohort_idx) -> (n_c, B) sample indices; ``step``
@@ -284,9 +285,7 @@ class ClientRuntime:
                 raise ValueError(f"batch_indices gave shape {idx.shape} for "
                                  f"cohort {ci}, expected {(n_c, b)}")
             return torch.from_numpy(idx)
-        gen = self.fed.generator
-        return torch.randint(0, m, (n_c, b), generator=gen,
-                             device=gen.device)
+        return draw_batch_indices(self.fed.generator, n_c, m, b)
 
     def local_round(self, mask_np: np.ndarray, use_ref: bool) -> None:
         """One wake of the masked clients, in place."""

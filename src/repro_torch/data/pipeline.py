@@ -8,14 +8,25 @@ import numpy as np
 import torch
 
 
+def draw_batch_indices(generator: torch.Generator, n_real: int, m: int,
+                       batch: int) -> torch.Tensor:
+    """(n_real, batch) sample indices in [0, m), one row a REAL client,
+    drawn from ``generator`` on its device. A ghost-padded cohort draws
+    here at its real row count and pads the indices after
+    (``cohort_batch_padded``), so the real rows' draws do not depend on
+    the padding."""
+    return torch.randint(0, m, (n_real, batch), generator=generator,
+                         device=generator.device)
+
+
 def cohort_batch(data: Dict[str, torch.Tensor],
                  idx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Gather each client's minibatch from its own shard.
 
     data: {x (n_c, M, L), y (n_c, M)}, idx (n_c, B) sample indices per
     client -> {x (n_c, B, L), y (n_c, B)}. The index layout is the
-    reference's ``take_along_axis`` one; drawing ``idx`` is the caller's
-    business (a ``torch.Generator``, or indices replayed from elsewhere)."""
+    reference's ``take_along_axis`` one; ``idx`` comes from
+    ``draw_batch_indices`` or is replayed from elsewhere."""
     idx = idx.to(device=data["y"].device, dtype=torch.long)
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return {"x": data["x"][rows, idx], "y": data["y"][rows, idx]}

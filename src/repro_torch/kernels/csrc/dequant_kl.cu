@@ -350,48 +350,29 @@ thin_kernel(const uint8_t* __restrict__ qt, const float* __restrict__ st,
   }
 }
 
-int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-
 template <int TB, int V>
 cudaError_t launch_thin(const void* qt, const void* st, const void* lt,
                         const void* qm, const void* sm, void* lm, void* out,
                         int T, int M, int R, int C, int thin_is_a,
-                        int have_lt, int have_lm, size_t smem,
-                        cudaStream_t s) {
+                        int have_lt, int have_lm, int gx, int block,
+                        int smem, cudaStream_t s) {
   auto kernel = thin_kernel<TB, V>;
-  // the shared-memory grant and the blocks an SM holds at this size, set
-  // and queried again only when the device or the size changes: each
-  // costs the host microseconds, as much as the kernel of an upload
-  static int dev_seen = -1, per_sm = 0;
-  static size_t smem_seen = 0;
+  // the shared-memory grant, set again only when the device or the size
+  // changes: a set costs the host microseconds, as much as the kernel of
+  // an upload
+  static int dev_seen = -1;
+  static int smem_seen = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev != dev_seen || smem != smem_seen) {
     e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      32 * WARPS, smem);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
     dev_seen = dev;
     smem_seen = smem;
   }
-  // enough blocks to fill the card once, at most RPI rows a warp
-  const long rows_per_block = (long)WARPS * rows_per_iter<TB>();
-  const long want = ((long)M + rows_per_block - 1) / rows_per_block;
-  const int grid = (int)(want < (long)per_sm * num_sms()
-                             ? want : (long)per_sm * num_sms());
-  kernel<<<grid, 32 * WARPS, smem, s>>>(
+  kernel<<<gx, block, smem, s>>>(
       static_cast<const uint8_t*>(qt), static_cast<const float*>(st),
       static_cast<const float*>(lt), static_cast<const uint8_t*>(qm),
       static_cast<const float*>(sm), static_cast<float*>(lm),
@@ -399,16 +380,30 @@ cudaError_t launch_thin(const void* qt, const void* st, const void* lt,
   return cudaGetLastError();
 }
 
+template <int TB, int V>
+cudaError_t thin_blocks(int smem, int* per_sm) {
+  auto kernel = thin_kernel<TB, V>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       32 * WARPS, smem);
+}
+
 template <int V>
 cudaError_t thin_by_size(const void* qt, const void* st, const void* lt,
                          const void* qm, const void* sm, void* lm,
                          void* out, int T, int M, int R, int C,
-                         int thin_is_a, int have_lt, int have_lm,
-                         size_t smem, cudaStream_t s) {
+                         int thin_is_a, int have_lt, int have_lm, int gx,
+                         int block, int smem, cudaStream_t s) {
 #define THIN_CASE(TB)                                                     \
-  if (T <= TB)                                                            \
+  if (T <= TB) {                                                          \
+    if ((long)(gx - 1) * WARPS * rows_per_iter<TB>() >= M)                \
+      return cudaErrorInvalidConfiguration;                               \
     return launch_thin<TB, V>(qt, st, lt, qm, sm, lm, out, T, M, R, C,    \
-                              thin_is_a, have_lt, have_lm, smem, s);
+                              thin_is_a, have_lt, have_lm, gx, block,     \
+                              smem, s);                                   \
+  }
   THIN_CASE(1)
   THIN_CASE(2)
   THIN_CASE(4)
@@ -428,20 +423,25 @@ bool aligned4(const void* p) {
 // hi, lo (rows, Kp) fp32 planes of x = exp(l) (a_side != 0, with rowterm
 // (rows,) fp32) or x = l (a_side == 0, rowterm unused), Kp a multiple of
 // 4 at least R*C. lse is read when have_lse != 0, else written with the
-// row statistics first. Returns cudaGetLastError().
+// row statistics first. The grid is kernels/dequant_kl.py's
+// split_geometry: gx blocks of WARPS rows. Returns cudaGetLastError(), or
+// a refusal before the launch.
 extern "C" int int8_pairwise_kl_split(const void* q, const void* scale,
                                       void* lse, void* hi, void* lo,
                                       void* rowterm, int rows, int R, int C,
                                       int Kp, int a_side, int have_lse,
+                                      int gx, int gy, int block, int smem,
                                       void* stream) {
   const int K = R * C;
   if (Kp < K || Kp % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((rows + WARPS - 1) / WARPS);
+  if (gx < 1 || (long)gx * WARPS < rows || (long)(gx - 1) * WARPS >= rows ||
+      gy != 1 || block != 32 * WARPS || smem != 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto kernel = (K % 4 == 0 && aligned4(q)) ? split_kernel<4>
                                              : split_kernel<1>;
-  kernel<<<grid, 32 * WARPS, 0, s>>>(
+  kernel<<<gx, block, 0, s>>>(
       static_cast<const uint8_t*>(q), static_cast<const float*>(scale),
       static_cast<float*>(lse), static_cast<float*>(hi),
       static_cast<float*>(lo), static_cast<float*>(rowterm), rows, R, C, Kp,
@@ -449,28 +449,59 @@ extern "C" int int8_pairwise_kl_split(const void* q, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The thin kernel's resident blocks an SM at T thin rows, the vector
+// width vec (4 when K % 4 == 0 and the many side's codes are 4-byte
+// aligned, else 1) and smem bytes of dynamic shared memory, into
+// *per_sm (a host int): the input of thin_geometry's persistent grid.
+// The stream is unused. Returns a CUDA error code.
+extern "C" int int8_pairwise_kl_thin_blocks(void* per_sm, int T, int vec,
+                                            int smem, void* stream) {
+  (void)stream;
+  int* out = static_cast<int*>(per_sm);
+#define BLOCKS_CASE(TB)                                                   \
+  if (T <= TB)                                                            \
+    return static_cast<int>(vec == 4 ? thin_blocks<TB, 4>(smem, out)      \
+                                     : thin_blocks<TB, 1>(smem, out));
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  BLOCKS_CASE(1)
+  BLOCKS_CASE(2)
+  BLOCKS_CASE(4)
+  BLOCKS_CASE(8)
+  BLOCKS_CASE(16)
+#undef BLOCKS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The thin side qt (T, R, C) with st, lt (T, R) against the many side qm
 // (M, R, C) with sm, lm (M, R); all fp32 but the uint8 codes. thin_is_a
 // says which side of D the thin one is: out is (T, M) if it is A, else
 // (M, T). lt is read when have_lt != 0 (else computed in shared memory,
 // lt unused); lm is read when have_lm != 0, else written with the many
-// side's row statistics first. 1 <= T <= 16. Returns cudaGetLastError()
-// after the launch, or a refusal before it.
+// side's row statistics first. 1 <= T <= 16. The grid is
+// thin_geometry's persistent one: gx blocks (at most the card's resident
+// blocks) stride over the many side, each warp carrying rows_per_iter
+// rows a pass, with ``smem`` bytes of dynamic shared memory for the thin
+// side. Returns cudaGetLastError() after the launch, or a refusal before
+// it.
 extern "C" int int8_pairwise_kl_thin(const void* qt, const void* st,
                                      const void* lt, const void* qm,
                                      const void* sm, void* lm, void* out,
                                      int T, int M, int R, int C,
                                      int thin_is_a, int have_lt,
-                                     int have_lm, void* stream) {
+                                     int have_lm, int gx, int gy, int block,
+                                     int smem, void* stream) {
   if (T < 1 || T > THIN_ROWS) return static_cast<int>(cudaErrorInvalidValue);
   const int K = R * C;
-  const size_t smem = sizeof(float) *
+  const size_t need = sizeof(float) *
       ((size_t)T * K + T + (have_lt ? 0 : (size_t)T * R));
+  if (gx < 1 || gy != 1 || block != 32 * WARPS || (size_t)smem != need)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool vec = K % 4 == 0 && aligned4(qm);
   return static_cast<int>(
       vec ? thin_by_size<4>(qt, st, lt, qm, sm, lm, out, T, M, R, C,
-                            thin_is_a, have_lt, have_lm, smem, s)
+                            thin_is_a, have_lt, have_lm, gx, block, smem, s)
           : thin_by_size<1>(qt, st, lt, qm, sm, lm, out, T, M, R, C,
-                            thin_is_a, have_lt, have_lm, smem, s));
+                            thin_is_a, have_lt, have_lm, gx, block, smem,
+                            s));
 }

@@ -112,11 +112,11 @@ neighbor_gather_kernel(const int* __restrict__ nbr,
 
 template <typename T, int V>
 cudaError_t launch(const void* nbr, const void* w, const void* s, void* out,
-                   int N, int K, int RC, cudaStream_t st) {
-  neighbor_gather_kernel<T, V>
-      <<<N, THREADS, (size_t)K * (sizeof(int) + sizeof(float)), st>>>(
-          static_cast<const int*>(nbr), static_cast<const float*>(w),
-          static_cast<const T*>(s), static_cast<float*>(out), K, RC);
+                   int N, int K, int RC, int gx, int block, int smem,
+                   cudaStream_t st) {
+  neighbor_gather_kernel<T, V><<<gx, block, smem, st>>>(
+      static_cast<const int*>(nbr), static_cast<const float*>(w),
+      static_cast<const T*>(s), static_cast<float*>(out), K, RC);
   return cudaGetLastError();
 }
 
@@ -127,20 +127,33 @@ bool aligned16(const void* p) {
 }  // namespace
 
 // nbr (N, K) int32 in [0, N), w (N, K) fp32, s (N, RC) fp32 (bf16 == 0)
-// or bf16, out (N, RC) fp32. Returns cudaGetLastError() after the launch.
+// or bf16, out (N, RC) fp32, on the grid kernels/neighbor_gather.py's
+// launch_geometry gives: gx = N blocks (one a row) of ``block`` threads,
+// with a row's K slots in ``smem`` bytes of dynamic shared memory.
+// Returns cudaGetLastError() after the launch, or a refusal before it
+// when the geometry is not that.
 extern "C" int neighbor_gather(const void* nbr, const void* w, const void* s,
                                void* out, int N, int K, int RC, int bf16,
+                               int gx, int gy, int block, int smem,
                                void* stream) {
+  if (gx != N || gy != 1 || block != THREADS ||
+      (size_t)smem != (size_t)K * (sizeof(int) + sizeof(float)))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = aligned16(s) && aligned16(out);
   cudaError_t err;
   if (bf16) {
     err = vec && RC % 8 == 0
-              ? launch<__nv_bfloat16, 8>(nbr, w, s, out, N, K, RC, st)
-              : launch<__nv_bfloat16, 1>(nbr, w, s, out, N, K, RC, st);
+              ? launch<__nv_bfloat16, 8>(nbr, w, s, out, N, K, RC, gx, block,
+                                         smem, st)
+              : launch<__nv_bfloat16, 1>(nbr, w, s, out, N, K, RC, gx, block,
+                                         smem, st);
   } else {
-    err = vec && RC % 4 == 0 ? launch<float, 4>(nbr, w, s, out, N, K, RC, st)
-                             : launch<float, 1>(nbr, w, s, out, N, K, RC, st);
+    err = vec && RC % 4 == 0
+              ? launch<float, 4>(nbr, w, s, out, N, K, RC, gx, block, smem,
+                                 st)
+              : launch<float, 1>(nbr, w, s, out, N, K, RC, gx, block, smem,
+                                 st);
   }
   return static_cast<int>(err);
 }

@@ -133,14 +133,15 @@ split_t_kernel(const T* __restrict__ s, float* __restrict__ hi,
 
 template <typename T>
 cudaError_t launch_split_t(const void* s, void* hi, void* lo, int N, int RC,
-                           int Kp, cudaStream_t st) {
-  const dim3 grid((RC + TJ - 1) / TJ, Kp / TN);
+                           int Kp, int gx, int gy, int block,
+                           cudaStream_t st) {
+  const dim3 grid(gx, gy);
   const bool vec = RC % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(s) % (4 * sizeof(T)) == 0;
   auto kernel = vec ? split_t_kernel<T, true> : split_t_kernel<T, false>;
-  kernel<<<grid, THREADS, 0, st>>>(static_cast<const T*>(s),
-                                   static_cast<float*>(hi),
-                                   static_cast<float*>(lo), N, RC, Kp);
+  kernel<<<grid, block, 0, st>>>(static_cast<const T*>(s),
+                                 static_cast<float*>(hi),
+                                 static_cast<float*>(lo), N, RC, Kp);
   return cudaGetLastError();
 }
 
@@ -148,17 +149,24 @@ cudaError_t launch_split_t(const void* s, void* hi, void* lo, int N, int RC,
 
 // s (N, RC) row-major, fp32 (bf16 == 0) or bf16 -> hi, lo (RC, Kp) fp32
 // planes of S^T (Kp a multiple of 32 and >= N, zero past N; 16-byte
-// aligned). Returns cudaGetLastError() after the launch, or a refusal
+// aligned), on the grid kernels/neighbor_mean.py's split_geometry gives:
+// gx blocks of TJ columns of S over RC, gy = Kp / TN blocks over the
+// planes' k. Returns cudaGetLastError() after the launch, or a refusal
 // before it.
 extern "C" int neighbor_mean_split(const void* s, void* hi, void* lo, int N,
-                                   int RC, int Kp, int bf16, void* stream) {
+                                   int RC, int Kp, int bf16, int gx, int gy,
+                                   int block, int smem, void* stream) {
   if (Kp % TN != 0 || Kp < N ||
       reinterpret_cast<uintptr_t>(hi) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(lo) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (RC == 0 || Kp == 0) return static_cast<int>(cudaSuccess);
+  if ((long)gx * TJ < RC || (long)(gx - 1) * TJ >= RC || gx < 1 ||
+      (long)gy * TN != Kp || block != THREADS || smem != 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      bf16 ? launch_split_t<__nv_bfloat16>(s, hi, lo, N, RC, Kp, st)
-           : launch_split_t<float>(s, hi, lo, N, RC, Kp, st));
+      bf16 ? launch_split_t<__nv_bfloat16>(s, hi, lo, N, RC, Kp, gx, gy,
+                                           block, st)
+           : launch_split_t<float>(s, hi, lo, N, RC, Kp, gx, gy, block, st));
 }

@@ -150,15 +150,24 @@ split_kernel(const T* __restrict__ l, float* __restrict__ hi,
   }
 }
 
+// The caller's launch geometry (kernels/pairwise_kl.py's split_geometry
+// and gemm_geometry) is launched as given, after a check: ``g`` blocks of
+// ``tile`` cover ``extent``, and none lies wholly outside it.
+bool covers(int g, int tile, int extent) {
+  return g >= 1 && (long)g * tile >= extent && (long)(g - 1) * tile < extent;
+}
+
 template <typename T>
 cudaError_t launch_split(const void* l, void* hi, void* lo, void* rowterm,
-                         int rows, int K, int Kp, int a_side,
-                         cudaStream_t s) {
-  const int grid = (rows + SPLIT_ROWS - 1) / SPLIT_ROWS;
+                         int rows, int K, int Kp, int a_side, int gx, int gy,
+                         int block, int smem, cudaStream_t s) {
+  if (!covers(gx, SPLIT_ROWS, rows) || gy != 1 ||
+      block != 32 * SPLIT_ROWS || smem != 0)
+    return cudaErrorInvalidConfiguration;
   const bool vec = K % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(l) % (4 * sizeof(T)) == 0;
   auto kernel = vec ? split_kernel<T, 4> : split_kernel<T, 1>;
-  kernel<<<grid, 32 * SPLIT_ROWS, 0, s>>>(
+  kernel<<<gx, block, 0, s>>>(
       static_cast<const T*>(l), static_cast<float*>(hi),
       static_cast<float*>(lo), static_cast<float*>(rowterm), rows, K, Kp,
       a_side);
@@ -424,28 +433,37 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base,
 
 // l (rows, K) row-major, fp32 (bf16 == 0) or bf16 -> hi, lo (rows, Kp)
 // fp32 planes of x = exp(l) (a_side != 0, with rowterm (rows,) fp32) or
-// x = l (a_side == 0, rowterm unused). Returns cudaGetLastError().
+// x = l (a_side == 0, rowterm unused), launched on the grid (gx, gy) of
+// ``block`` threads with ``smem`` bytes of dynamic shared memory that
+// split_geometry gives. Returns cudaGetLastError(), or a refusal before
+// the launch when the geometry does not cover the rows.
 extern "C" int pairwise_kl_split(const void* l, void* hi, void* lo,
                                  void* rowterm, int rows, int K, int Kp,
-                                 int a_side, int bf16, void* stream) {
+                                 int a_side, int bf16, int gx, int gy,
+                                 int block, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       bf16 ? launch_split<__nv_bfloat16>(l, hi, lo, rowterm, rows, K, Kp,
-                                         a_side, s)
+                                         a_side, gx, gy, block, smem, s)
            : launch_split<float>(l, hi, lo, rowterm, rows, K, Kp, a_side,
-                                 s));
+                                 gx, gy, block, smem, s));
 }
 
 // a_hi, a_lo (U, Kp) and b_hi, b_lo (M, Kp) fp32 planes from
 // pairwise_kl_split (Kp a multiple of 32, rows 16-byte aligned), rowterm
 // (U,) fp32 -> out (U, M) fp32, (rowterm - A B^T) / R; with rowterm null,
-// out = A B^T (R unused). Returns cudaGetLastError() after the launch, or
-// a refusal before it.
+// out = A B^T (R unused). The grid (gx, gy), threads and dynamic shared
+// memory are gemm_geometry's: gx blocks over M, gy over U. Returns
+// cudaGetLastError() after the launch, or a refusal before it.
 extern "C" int pairwise_kl_pair(const void* a_hi, const void* a_lo,
                                 const void* b_hi, const void* b_lo,
                                 const void* rowterm, void* out, int U, int M,
-                                int Kp, int R, void* stream) {
+                                int Kp, int R, int gx, int gy, int block,
+                                int smem, void* stream) {
   if (Kp % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (!covers(gx, BN, M) || !covers(gy, BM, U) || block != THREADS ||
+      smem != SMEM_BYTES)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap maps[4];
@@ -457,11 +475,11 @@ extern "C" int pairwise_kl_pair(const void* a_hi, const void* a_lo,
   // above 48 KB of dynamic shared memory; set on every call, so a call on
   // another device of the process finds it set too
   const cudaError_t e = cudaFuncSetAttribute(
-      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((M + BN - 1) / BN, (U + BM - 1) / BM);
+  const dim3 grid(gx, gy);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  gemm_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+  gemm_kernel<<<grid, block, smem, s>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(rowterm),
       static_cast<float*>(out), U, M, Kp / BK, static_cast<float>(R));
   return static_cast<int>(cudaGetLastError());

@@ -65,17 +65,23 @@ soft_ce_kernel(const T* __restrict__ z, const int* __restrict__ y,
 
 }  // namespace
 
-// z (N, R, C) fp32 (bf16 == 0) or bf16, y (R,) int32, out (N,) fp32.
-// Returns cudaGetLastError() after the launch.
+// z (N, R, C) fp32 (bf16 == 0) or bf16, y (R,) int32, out (N,) fp32, on
+// the grid of gx blocks of ``block`` threads that kernels/soft_ce.py's
+// launch_geometry gives (one block a client row). Returns
+// cudaGetLastError() after the launch, or a refusal before it when the
+// geometry is not one block a row.
 extern "C" int soft_ce(const void* z, const void* y, void* out, int N, int R,
-                       int C, int bf16, void* stream) {
+                       int C, int bf16, int gx, int gy, int block, int smem,
+                       void* stream) {
+  if (gx != N || gy != 1 || block != THREADS || smem != 0)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    soft_ce_kernel<__nv_bfloat16><<<N, THREADS, 0, s>>>(
+    soft_ce_kernel<__nv_bfloat16><<<gx, block, 0, s>>>(
         static_cast<const __nv_bfloat16*>(z), static_cast<const int*>(y),
         static_cast<float*>(out), R, C);
   } else {
-    soft_ce_kernel<float><<<N, THREADS, 0, s>>>(
+    soft_ce_kernel<float><<<gx, block, 0, s>>>(
         static_cast<const float*>(z), static_cast<const int*>(y),
         static_cast<float*>(out), R, C);
   }

@@ -24,20 +24,24 @@ two kernels of this source; plain-version calls count nothing.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import pairwise_kl as pk
 from repro_torch.kernels import ref
+from repro_torch.kernels.geometry import Cover, Geometry, blocks, num_sms
 
 # csrc/<SOURCE>.cu, its C entry points, and each entry point's device
 # pointers and ints (the stream comes last)
 SOURCE = "dequant_kl"
 SPLIT, THIN = "int8_pairwise_kl_split", "int8_pairwise_kl_thin"
+THIN_BLOCKS = "int8_pairwise_kl_thin_blocks"
 ENTRY = SPLIT
-ENTRIES = {SPLIT: (6, 6), THIN: (7, 7)}
+ENTRIES = {SPLIT: (6, 10), THIN: (7, 11), THIN_BLOCKS: (1, 3)}
+WARPS = 8        # csrc/dequant_kl.cu's warps a block (whole rows each)
 SCALE_DTYPES = (torch.float32, torch.bfloat16)
 # a strip whose shorter side has at most THIN_ROWS rows takes the thin
 # kernel, if that side's decode fits in THIN_SMEM bytes of shared memory:
@@ -53,6 +57,82 @@ STATS_ELEMS = 1 << 22
 launches = 0
 split_launches = 0
 thin_launches = 0
+
+
+def split_args(rows: int) -> Tuple[int, int, int, int]:
+    """The dequant split's launch over ``rows`` rows: one warp a row,
+    WARPS rows a block."""
+    return blocks(rows, WARPS), 1, 32 * WARPS, 0
+
+
+def split_geometry(rows: int) -> Geometry:
+    gx, gy, threads, smem = split_args(rows)
+    return Geometry(SPLIT, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("rows", 0, WARPS, rows),))
+
+
+def thin_tb(t: int) -> int:
+    """The thin kernel instance for ``t`` thin rows: the smallest of 1,
+    2, 4, 8, 16 at least ``t``."""
+    return 1 << (t - 1).bit_length() if t > 1 else 1
+
+
+def thin_smem(t: int, r: int, c: int, have_lt: bool) -> int:
+    """Dynamic shared memory of the thin kernel: the thin side's decode
+    (T, K) fp32, its row terms, and its lse when the kernel computes it."""
+    return 4 * (t * r * c + t + (0 if have_lt else t * r))
+
+
+def _thin_rows_per_block(t: int) -> int:
+    """Many-side rows a thin block covers a pass: each warp carries 4 (2
+    above 8 thin rows)."""
+    return WARPS * (4 if thin_tb(t) <= 8 else 2)
+
+
+def thin_args(t: int, m: int, r: int, c: int, have_lt: bool, sms: int,
+              blocks_per_sm: int) -> Tuple[int, int, int, int]:
+    """The thin kernel's persistent grid: enough blocks to cover the many
+    side's ``m`` rows once, but never more than the card holds at once
+    (``blocks_per_sm`` resident blocks on each of ``sms`` SMs); the blocks
+    then stride over the rest."""
+    grid = max(1, min(blocks(m, _thin_rows_per_block(t)),
+                      blocks_per_sm * sms))
+    return grid, 1, 32 * WARPS, thin_smem(t, r, c, have_lt)
+
+
+def thin_geometry(t: int, m: int, r: int, c: int, have_lt: bool,
+                  sms: int, blocks_per_sm: int) -> Geometry:
+    gx, gy, threads, smem = thin_args(t, m, r, c, have_lt, sms,
+                                      blocks_per_sm)
+    per_block = _thin_rows_per_block(t)
+    return Geometry(THIN, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("many-side rows (M)", 0, per_block, m,
+                           passes=blocks(m, gx * per_block)),))
+
+
+# resident thin blocks an SM, by (device, instance, vector width, smem)
+_THIN_BLOCKS: Dict[Tuple[int, int, int, int], int] = {}
+
+
+def thin_blocks_per_sm(device: torch.device, t: int, vec: int,
+                       smem: int) -> int:
+    """How many thin blocks of ``smem`` bytes an SM of ``device`` holds,
+    asked of the CUDA occupancy calculator once a (device, instance,
+    vector width, size)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (idx, thin_tb(t), vec, smem)
+    if key not in _THIN_BLOCKS:
+        got = ctypes.c_int(0)
+        fn = build.entry(SOURCE, THIN_BLOCKS, *ENTRIES[THIN_BLOCKS])
+        with torch.cuda.device(idx):
+            build.check(THIN_BLOCKS, fn(ctypes.addressof(got), t, vec, smem,
+                                        None))
+        if got.value < 1:
+            raise RuntimeError(f"the thin kernel does not fit an SM at "
+                               f"{smem} bytes of shared memory")
+        _THIN_BLOCKS[key] = got.value
+    return _THIN_BLOCKS[key]
 
 
 def _check_pair(qa, sa, qb, sb) -> None:
@@ -158,7 +238,8 @@ def split(q: torch.Tensor, scale: torch.Tensor, a_side: bool,
         code = fn(q.data_ptr(), scale.data_ptr(), lse.data_ptr(),
                   planes[0].data_ptr(), planes[1].data_ptr(),
                   rowterm.data_ptr() if a_side else None, rows, r, c, k_pad,
-                  int(a_side), int(have), _stream(q))
+                  int(a_side), int(have), *split_args(rows),
+                  _stream(q))
         build.check(SPLIT, code)
         split_launches += 1
     return pk.Split(planes, rowterm, r), lse
@@ -217,11 +298,18 @@ def _thin(qa, sa, qb, sb, lse_a, lse_b) -> torch.Tensor:
     have_lm = lm is not None
     if not have_lm:          # the kernel writes the many side's lse here
         lm = torch.empty((n_many, r), dtype=torch.float32, device=qa.device)
+    have_lt = lt is not None
+    # the vector width the entry point picks (csrc/dequant_kl.cu): 4 when
+    # K % 4 == 0 and the many side's codes are 4-byte aligned
+    vec = 4 if (r * c) % 4 == 0 and qm.data_ptr() % 4 == 0 else 1
+    smem = thin_smem(n_thin, r, c, have_lt)
+    launch = thin_args(n_thin, n_many, r, c, have_lt, num_sms(qa.device),
+                       thin_blocks_per_sm(qa.device, n_thin, vec, smem))
     fn = build.entry(SOURCE, THIN, *ENTRIES[THIN])
     code = fn(qt.data_ptr(), st.data_ptr(),
               None if lt is None else lt.data_ptr(), qm.data_ptr(),
               sm.data_ptr(), lm.data_ptr(), out.data_ptr(), n_thin, n_many,
-              r, c, int(a_thin), int(lt is not None), int(have_lm),
+              r, c, int(a_thin), int(have_lt), int(have_lm), *launch,
               _stream(out))
     build.check(THIN, code)
     thin_launches += 1

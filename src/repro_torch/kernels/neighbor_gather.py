@@ -8,18 +8,34 @@ or raises. ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.geometry import Cover, Geometry
 from repro_torch.kernels.ref import neighbor_gather_ref as plain
 
 # csrc/<SOURCE>.cu and its C entry point with its device pointers and ints
 # (the stream comes last)
 SOURCE, ENTRY = "neighbor_gather", "neighbor_gather"
-ENTRIES = {ENTRY: (4, 4)}
+ENTRIES = {ENTRY: (4, 8)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SLOTS = 4096   # a row's slots live in shared memory (8 bytes each)
+THREADS = 128      # csrc/neighbor_gather.cu's block
 launches = 0
+
+
+def launch_args(n: int, k: int) -> Tuple[int, int, int, int]:
+    """One block a target row, its K slots (index and weight, 8 bytes
+    each) staged in dynamic shared memory."""
+    return n, 1, THREADS, 8 * k
+
+
+def launch_geometry(n: int, k: int) -> Geometry:
+    gx, gy, threads, smem = launch_args(n, k)
+    return Geometry(ENTRY, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("rows (N)", 0, 1, n),))
 
 
 def neighbor_gather(nbrs: torch.Tensor, w: torch.Tensor,
@@ -63,6 +79,7 @@ def neighbor_gather(nbrs: torch.Tensor, w: torch.Tensor,
     code = fn(nbrs.data_ptr(), w.data_ptr(), probs.data_ptr(),
               out.data_ptr(), n, k, r * c,
               int(probs.dtype == torch.bfloat16),
+              *launch_args(n, k),
               torch.cuda.current_stream(probs.device).cuda_stream)
     build.check(ENTRY, code)
     launches += 1

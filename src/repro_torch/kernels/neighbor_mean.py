@@ -16,19 +16,39 @@ nothing.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import pairwise_kl as pk
+from repro_torch.kernels.geometry import Cover, Geometry, blocks
 from repro_torch.kernels.ref import neighbor_mean_ref as plain
 
 # csrc/<SOURCE>.cu, its C entry point, and the entry point's device
 # pointers and ints (the stream comes last); the GEMM is B1's
 SOURCE, ENTRY = "neighbor_mean", "neighbor_mean_split"
-ENTRIES = {ENTRY: (3, 4)}
+ENTRIES = {ENTRY: (3, 8)}
 DTYPES = (torch.float32, torch.bfloat16)
+# csrc/neighbor_mean.cu's transposing tile: TN rows of S (the planes' k)
+# by TJ of its R*C columns, THREADS threads
+TN, TJ, THREADS = 32, 64, 256
 launches = 0
 split_launches = 0
+
+
+def split_args(rc: int, k_pad: int) -> Tuple[int, int, int, int]:
+    """The transposing split of S (N, RC) into (RC, Kp) planes: x over
+    RC in TJ columns, y over the planes' Kp = N padded in TN rows (every
+    k tile, the zero pad included, is written)."""
+    return blocks(rc, TJ), k_pad // TN, THREADS, 0
+
+
+def split_geometry(rc: int, k_pad: int) -> Geometry:
+    gx, gy, threads, smem = split_args(rc, k_pad)
+    return Geometry(ENTRY, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("S columns (RC)", 0, TJ, rc),
+                     Cover("S rows (N, padded to Kp)", 1, TN, k_pad)))
 
 
 def _count_split() -> None:
@@ -61,6 +81,7 @@ def split_t(probs: torch.Tensor) -> pk.Split:
         code = fn(probs.data_ptr(), planes[0].data_ptr(),
                   planes[1].data_ptr(), n, r * c, k_pad,
                   int(probs.dtype == torch.bfloat16),
+                  *split_args(r * c, k_pad),
                   torch.cuda.current_stream(probs.device).cuda_stream)
         build.check(ENTRY, code)
         _count_split()

@@ -13,22 +13,62 @@ split launches; plain-version calls count nothing.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.geometry import (Cover, Geometry, TensorMap,
+                                          blocks)
 from repro_torch.kernels.ref import pairwise_kl_pair_ref as plain
 
 # csrc/<SOURCE>.cu and its C entry points, each with its device pointers
 # and ints (the stream comes last); ENTRY is the GEMM
 SOURCE, ENTRY, SPLIT = ("pairwise_kl", "pairwise_kl_pair",
                         "pairwise_kl_split")
-ENTRIES = {ENTRY: (6, 4), SPLIT: (4, 5)}
+ENTRIES = {ENTRY: (6, 8), SPLIT: (4, 9)}
 DTYPES = (torch.float32, torch.bfloat16)
 BK = 32          # the GEMM's k-tile: the planes' rows pad to a multiple
+# csrc/pairwise_kl.cu's launch constants: the split's rows a block (a warp
+# each), the GEMM's output tile, its threads (a producer and two consumer
+# warpgroups) and its shared memory (3 stages of 4 fp32 tiles of BM x BK,
+# plus 1 KB to align the swizzled tiles)
+SPLIT_ROWS = 8
+BM = BN = 128
+GEMM_THREADS = 128 * 3
+GEMM_SMEM = 3 * 4 * BM * BK * 4 + 1024
 launches = 0
 split_launches = 0
+
+
+def split_args(rows: int) -> Tuple[int, int, int, int]:
+    """The split pass's launch over ``rows`` rows: one warp a row,
+    SPLIT_ROWS rows a block."""
+    return blocks(rows, SPLIT_ROWS), 1, 32 * SPLIT_ROWS, 0
+
+
+def split_geometry(rows: int) -> Geometry:
+    gx, gy, threads, smem = split_args(rows)
+    return Geometry(SPLIT, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("rows", 0, SPLIT_ROWS, rows),))
+
+
+def gemm_args(u: int, m: int) -> Tuple[int, int, int, int]:
+    """The 3xTF32 GEMM's launch for a (U, M) output: one block a BM x BN
+    tile, x over M and y over U."""
+    return blocks(m, BN), blocks(u, BM), GEMM_THREADS, GEMM_SMEM
+
+
+def gemm_geometry(u: int, m: int, k_pad: int) -> Geometry:
+    """``gemm_args`` described, with every plane read through a
+    CUtensorMap of rows ``k_pad`` fp32 wide."""
+    gx, gy, threads, smem = gemm_args(u, m)
+    maps = tuple(TensorMap(name, (k_pad, rows), (4 * k_pad,))
+                 for name, rows in (("a_hi", u), ("a_lo", u), ("b_hi", m),
+                                    ("b_lo", m)))
+    return Geometry(ENTRY, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("out cols (M)", 0, BN, m),
+                     Cover("out rows (U)", 1, BM, u)), maps)
 
 
 class Split(NamedTuple):
@@ -77,7 +117,7 @@ def split(logp: torch.Tensor, a_side: bool,
                   planes[1].data_ptr(),
                   rowterm.data_ptr() if a_side else None, rows, k, k_pad,
                   int(a_side), int(logp.dtype == torch.bfloat16),
-                  _stream(logp))
+                  *split_args(rows), _stream(logp))
         build.check(SPLIT, code)
         if count is None:
             split_launches += 1
@@ -113,7 +153,8 @@ def gemm(a: Split, b: Split, out: Optional[torch.Tensor] = None,
     code = fn(a.planes[0].data_ptr(), a.planes[1].data_ptr(),
               b.planes[0].data_ptr(), b.planes[1].data_ptr(),
               None if a.rowterm is None else a.rowterm.data_ptr(),
-              out.data_ptr(), u, m, k_pad, a.r, _stream(out))
+              out.data_ptr(), u, m, k_pad, a.r,
+              *gemm_args(u, m), _stream(out))
     build.check(ENTRY, code)
     if count is None:
         launches += 1

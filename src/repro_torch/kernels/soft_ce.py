@@ -7,18 +7,33 @@ or raises. ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.geometry import Cover, Geometry
 from repro_torch.kernels.ref import soft_ce_ref as plain
 
 # csrc/<SOURCE>.cu, its C entry point, and the entry point's device
 # pointers and ints (the stream comes last)
 SOURCE, ENTRY = "soft_ce", "soft_ce"
-ENTRIES = {ENTRY: (3, 4)}
+ENTRIES = {ENTRY: (3, 8)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_C = 1024   # one thread loops over a row's C classes (see soft_ce.cu)
+THREADS = 256  # csrc/soft_ce.cu's block
 launches = 0
+
+
+def launch_args(n: int) -> Tuple[int, int, int, int]:
+    """One block a client row: N blocks of THREADS threads."""
+    return n, 1, THREADS, 0
+
+
+def launch_geometry(n: int) -> Geometry:
+    gx, gy, threads, smem = launch_args(n)
+    return Geometry(ENTRY, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("clients (N)", 0, 1, n),))
 
 
 def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -50,6 +65,7 @@ def soft_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
     code = fn(logits.data_ptr(), labels.data_ptr(), out.data_ptr(), n, r, c,
               int(logits.dtype == torch.bfloat16),
+              *launch_args(n),
               torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(ENTRY, code)
     launches += 1

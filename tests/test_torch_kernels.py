@@ -681,7 +681,8 @@ def test_wrapper_matches_its_c_entry_point(mod):
         assert len(params) == n_ptr + n_int + 1
     if mod is dk_mod:
         assert set(mod.ENTRIES) == {"int8_pairwise_kl_split",
-                                    "int8_pairwise_kl_thin"}
+                                    "int8_pairwise_kl_thin",
+                                    "int8_pairwise_kl_thin_blocks"}
         assert "dequant_kl_pair_kernel" not in src   # the FFMA tile is gone
     if mod is nm_mod:
         # the dense Eq. 5 route: the transposing split here, W's split and
