@@ -213,6 +213,13 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     kernel's launches counted; and the cost model's operations and bytes
     of B1-B4's plain versions at phase 3's, 6's and 8's shapes, beside
     this run's bound of each;
+25. the LM dry run (``launch/dryrun.py``): qwen2-0.5b at full width on
+    phase 22's step (bf16, Adam, batch 8 x seq 128) traced on a 1x1 mesh
+    of fake card tensors against one real step on the card (argument
+    bytes and FLOPs equal, the predicted peak within DRYRUN_PEAK_RTOL of
+    ``max_memory_allocated``), then DRYRUN_ROWS on the production meshes
+    (16x16, 2x16x16), one ``python -m repro_torch.launch.dryrun`` each,
+    side by side, each row printed; any FAIL fails the phase;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -3917,6 +3924,146 @@ def analysis_phase(dev, rows: dict) -> dict:
     return {"gate": gate, "probes": probes, "cost": cost, "wall_s": wall}
 
 
+# --------------------------------------------------------------------------
+# phase 25: the LM dry run (launch/dryrun.py) on the card's machine
+# --------------------------------------------------------------------------
+# the predicted peak (argument + output - alias + temp bytes of the 1x1
+# trace) within this share of the real step's peak allocation, fixed
+# before the first run (phase 22's step read 13.05 GB)
+DRYRUN_PEAK_RTOL = 0.15
+# the production-mesh rows phase 25 traces: (arch, shape, flags), each a
+# ``python -m repro_torch.launch.dryrun`` of its own, all started together
+DRYRUN_ROWS = (
+    ("qwen2-0.5b", "train_4k", ()),
+    ("qwen2-0.5b", "train_4k", ("--multi-pod", "--dp-over-model")),
+    ("mixtral-8x7b", "prefill_32k", ()),
+    ("deepseek-v2-236b", "train_4k", ("--multi-pod", "--fsdp")),
+    ("gemma3-1b", "long_500k", ()),
+)
+
+
+def dryrun_host_check(dev) -> dict:
+    """qwen2-0.5b at full width on phase 22's step (bf16, Adam, batch
+    TRAIN_BATCH x seq TRAIN_SEQ, no remat), traced on a 1x1 mesh of fake
+    card tensors, against one real step on the card: argument bytes and
+    FLOPs equal, the predicted peak within DRYRUN_PEAK_RTOL of the real
+    step's peak allocation."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import InputShape, concrete_inputs, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adam, single_model
+    cfg = get_config(TRAIN_FULL_ARCH)
+    shape = InputShape("phase22", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    with fake_process_group(1):
+        row = dryrun.trace_step(cfg, shape, make_host_mesh(device=dev),
+                                remat=False, donate=False, device=dev)
+    trace_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(25)
+    params = init_params(cfg, device=dev, generator=gen)
+    opt = single_model(adam(1e-4))
+    state = opt.init(params)
+    batch = concrete_inputs(gen, cfg, shape, device=dev)
+    args = tree_leaves(params) + tree_leaves(state) + tree_leaves(batch)
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    step = make_train_step(cfg, opt, remat=False)
+    step(params, state, batch)     # cuBLAS's workspace, allocated once
+    torch.cuda.synchronize()
+    other = torch.cuda.memory_allocated() - arg_bytes   # earlier phases'
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = step(params, state, batch)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated() - other
+    del out
+    mem = row["memory"]
+    predicted = row["bytes_per_device"]
+    rel = abs(predicted - real_peak) / real_peak
+    label = (f"{TRAIN_FULL_ARCH} bf16, batch {TRAIN_BATCH} x seq "
+             f"{TRAIN_SEQ}, Adam, 1x1 mesh")
+    check(mem["argument_bytes"] == arg_bytes,
+          f"{label}: traced argument bytes {mem['argument_bytes']} != the "
+          f"real params + optimizer state + batch {arg_bytes}")
+    check(row["hlo_flops_per_dev"] == fc.get_total_flops(),
+          f"{label}: traced FLOPs {row['hlo_flops_per_dev']:.6e} != "
+          f"FlopCounterMode of the real step {fc.get_total_flops():.6e}")
+    check(rel <= DRYRUN_PEAK_RTOL,
+          f"{label}: predicted peak {predicted / 1e9:.3f} GB off the real "
+          f"step's {real_peak / 1e9:.3f} GB by {rel:.1%} (limit "
+          f"{DRYRUN_PEAK_RTOL:.0%})")
+    print(f"  [{CARD}] {label}: traced in {trace_s:.1f} s; argument bytes "
+          f"{arg_bytes} equal; FLOPs {fc.get_total_flops():.6e} equal; "
+          f"predicted peak {predicted / 1e9:.3f} GB (args "
+          f"{mem['argument_bytes'] / 1e9:.3f} + temp "
+          f"{mem['temp_bytes'] / 1e9:.3f} + out - alias "
+          f"{(mem['output_bytes'] - mem['alias_bytes']) / 1e9:.3f}) "
+          f"against max_memory_allocated {real_peak / 1e9:.3f} GB "
+          f"({rel:.2%})")
+    del params, state, batch, args
+    torch.cuda.empty_cache()
+    return {"trace_s": trace_s, "argument_bytes": arg_bytes,
+            "flops": fc.get_total_flops(), "predicted_peak": predicted,
+            "real_peak": real_peak, "peak_rel": rel, "memory": mem}
+
+
+def dryrun_rows() -> list:
+    """DRYRUN_ROWS, one dry-run process each (fake card tensors), all
+    started together; each row's JSON and its printed summary."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    t0 = time.perf_counter()
+    for arch, shape, flags in DRYRUN_ROWS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, *flags, "--out", str(out_dir)]
+        procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    rows = []
+    for (arch, shape, flags), proc in zip(DRYRUN_ROWS, procs):
+        text, _ = proc.communicate()
+        mesh = "multi" if "--multi-pod" in flags else "single"
+        tag = f"{arch}__{shape}__{mesh}"
+        path = out_dir / f"{tag}.json"
+        row = json.loads(path.read_text()) if path.exists() else {
+            "status": "FAIL", "error": text[-2000:]}
+        summary = [ln for ln in text.splitlines()
+                   if ln.startswith("DRY-RUN SUMMARY")]
+        check(proc.returncode == 0 and row["status"] == "OK",
+              f"dry run {tag} {' '.join(flags)}: {row.get('status')} "
+              f"{row.get('error', '')}")
+        mem = row["memory"]
+        print(f"  {tag} {' '.join(flags)}: {row['mesh']}, traced in "
+              f"{row['trace_s']} s; per device {row['hlo_flops_per_dev']:.3e} "
+              f"FLOPs, {row['hlo_bytes_per_dev']:.3e} B, collectives "
+              f"{row['coll_bytes_per_dev']:.3e} B {row['coll_counts']}; "
+              f"memory args {mem['argument_bytes'] / 1e9:.2f} GB temp "
+              f"{mem['temp_bytes'] / 1e9:.2f} GB; roofline compute "
+              f"{row['compute_s'] * 1e3:.2f} ms, memory "
+              f"{row['memory_s'] * 1e3:.2f} ms, collective "
+              f"{row['collective_s'] * 1e3:.2f} ms -> {row['dominant']}; "
+              f"useful {row['useful_flops_frac']:.3f} | {summary[-1]}")
+        rows.append(dict(row, flags=list(flags)))
+    print(f"  the {len(rows)} rows in {time.perf_counter() - t0:.1f} s "
+          f"(processes side by side)")
+    return rows
+
+
+def dryrun_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    host = dryrun_host_check(dev)
+    rows = dryrun_rows()
+    wall = time.perf_counter() - t0
+    print(f"  phase 25 wall time {wall:.1f} s")
+    return {"host_mesh": host, "rows": rows, "wall_s": wall}
+
+
 SOURCES = {
     "pairwise_kl_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                           "src/repro/kernels/pairwise_kl.py:37"),
@@ -4137,6 +4284,10 @@ def main() -> int:
     print("[24] the static-analysis gate, the kernels at the launch rule's "
           "probe shapes, the cost model beside the bounds")
     analysis = analysis_phase(dev, rows)
+
+    print("[25] the LM dry run: the 1x1 trace against a real step, then "
+          "production-mesh rows")
+    lm_dryrun = dryrun_phase(dev)
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -4160,7 +4311,8 @@ def main() -> int:
          "serving": serving, "checkpoints": checkpoints,
          "lm_serving": lm_serving, "moe_serving": moe_serving,
          "lm_training": lm_training, "sharding": sharding,
-         "analysis": analysis, "wall_s": time.perf_counter() - t_start},
+         "analysis": analysis, "lm_dryrun": lm_dryrun,
+         "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -9,7 +9,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, pin
 from repro_torch.models.transformer import decode_step, lm_loss, prefill
 from repro_torch.optim import (Optimizer, apply_updates,
                                clip_tree_by_global_norm)
@@ -27,7 +27,9 @@ def lm_value_and_grad(params, cfg: ModelConfig,
         loss, (ce, aux) = lm_loss(tree_unflatten(params, leaves), cfg,
                                   batch, moe_path=moe_path, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(t) if g is None else g
+    # each grad in its param's layout (the dry run's partitioner: a
+    # data-parallel grad is all-reduced, as GSPMD lays it out)
+    grads = [torch.zeros_like(t) if g is None else pin(g, t)
              for t, g in zip(leaves, grads)]
     return loss.detach(), ce.detach(), aux.detach(), grads
 
@@ -58,8 +60,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         if microbatches > 1:
             k = microbatches
             leaves = tree_leaves(params)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
             loss, ce, aux = (torch.zeros((), device=leaves[0].device)
                              for _ in range(3))
             for j in range(k):

@@ -23,7 +23,8 @@ import math
 import torch
 
 from repro_torch.models.common import (NEG_INF, Init, ModelConfig, Params,
-                                       apply_rope, dense_init)
+                                       apply_rope, attention_core,
+                                       cache_write, dense_init)
 
 # KV-block size for the chunked online-softmax path.
 KV_CHUNK = 1024
@@ -168,7 +169,7 @@ def attn_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """Full-sequence causal attention. positions: (S,) int32. With
     ``return_kv`` also the roped keys and the values, (B,S,KV,hd) each."""
     q, k, v = _qkv(p, cfg, x, positions)
-    o = attention_any(q, k, v, positions, positions, window)
+    o = attention_core(attention_any, q, k, v, positions, positions, window)
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     if return_kv:
         return y, (k, v)
@@ -191,11 +192,11 @@ def attn_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
     s_cache = cache["k"].shape[1]
     slot = pos % s_cache if window > 0 else torch.clamp(pos, max=s_cache - 1)
     slot = slot.reshape(1).long()
-    cache["k"].index_copy_(1, slot, k1.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v1.to(cache["v"].dtype))
-    cache["k_pos"].index_copy_(0, slot, positions)
-    o = direct_attention(q, cache["k"], cache["v"], positions,
-                         cache["k_pos"], window)
+    for name, new in (("k", k1), ("v", v1)):
+        cache_write(cache[name], 1, slot, new.to(cache[name].dtype))
+    cache_write(cache["k_pos"], 0, slot, positions)
+    o = attention_core(direct_attention, q, cache["k"], cache["v"],
+                       positions, cache["k_pos"], window)
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     pos.add_(1)                    # after every read of the old position
     return y, cache
@@ -239,7 +240,8 @@ def mla_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k_full = torch.cat([k_nope, krope[:, :, None, :].expand(
         *k_nope.shape[:3], krope.shape[-1])], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    o = attention_any(q_full, k_full, v, positions, positions)
+    o = attention_core(attention_any, q_full, k_full, v, positions,
+                       positions)
     y = torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
     if return_kv:
         return y, (ckv.to(x.dtype), krope.to(x.dtype))
@@ -259,9 +261,9 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params):
     positions = pos.reshape(1)
     ckv1, krope1 = _mla_latent(p, cfg, x, positions)
     slot = torch.clamp(pos, max=cache["ckv"].shape[1] - 1).reshape(1).long()
-    cache["ckv"].index_copy_(1, slot, ckv1.to(cache["ckv"].dtype))
-    cache["krope"].index_copy_(1, slot, krope1.to(cache["krope"].dtype))
-    cache["k_pos"].index_copy_(0, slot, positions)
+    for name, new in (("ckv", ckv1), ("krope", krope1)):
+        cache_write(cache[name], 1, slot, new.to(cache[name].dtype))
+    cache_write(cache["k_pos"], 0, slot, positions)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)          # (B,1,H,hd/rh)
     q_eff = torch.einsum("bshk,rhk->bshr", q_nope.float(),
                          p["w_uk"].float())                 # (B,1,H,r)

@@ -98,10 +98,13 @@ def full_kv_to_cache(k: torch.Tensor, v: torch.Tensor, max_seq: int,
         w = min(window, max_seq)
         pos_idx = torch.arange(max(0, s - w), s, device=dev)
         slots = pos_idx % w
-        ck = torch.zeros((b, w, kvh, hd), dtype=k.dtype, device=dev)
-        cv = torch.zeros((b, w, kvh, hd), dtype=v.dtype, device=dev)
-        ck[:, slots] = k[:, pos_idx]
-        cv[:, slots] = v[:, pos_idx]
+        if s <= w:              # position t in slot t, the rest zeros
+            ck = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, w - s))
+            cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, w - s))
+        else:                   # the last w positions, t in slot t % w
+            r = w - s % w
+            ck = torch.cat([k[:, s - w + r:], k[:, s - w:s - w + r]], dim=1)
+            cv = torch.cat([v[:, s - w + r:], v[:, s - w:s - w + r]], dim=1)
         kp = torch.full((w,), INT_MAX, dtype=torch.int32, device=dev)
         kp[slots] = pos_idx.to(torch.int32)
         return {"k": ck, "v": cv, "k_pos": kp, "pos": pos}

@@ -242,6 +242,117 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 NEG_INF = -1e30
 
 
+# ---------------------------------------------------------------------------
+# The dry run's partitioner hook
+# ---------------------------------------------------------------------------
+# The LM dry run (``launch/dryrun.py``) runs the steps on DTensors. Where
+# DTensor's sharding propagation would leave an activation in a layout
+# that a later op cannot take (a Partial written into a cache or left
+# unreduced at a layer boundary; a head-sharded query under the GQA
+# group view), the model hands it to the installed partitioner, which
+# lays it out as GSPMD settles it. Off the dry run none is installed.
+_PARTITIONER = None
+
+
+def set_partitioner(partitioner) -> None:
+    """An object with a method for each hook below (``pin``,
+    ``attention``, ``ffn``, ``experts``, ``decode_experts``, ``ssd``,
+    ``channels``, ``embed``, ``pick``, ``cache_write``, ``local``), or
+    None to disable."""
+    global _PARTITIONER
+    _PARTITIONER = partitioner
+
+
+def pin(x: torch.Tensor, like: Optional[torch.Tensor] = None
+        ) -> torch.Tensor:
+    """``x`` in the batch layout (the batch dim over the data axes,
+    replicated over the model axis), or in ``like``'s layout."""
+    return x if _PARTITIONER is None else _PARTITIONER.pin(x, like)
+
+
+def attention_core(fn, q, k, v, q_pos, k_pos, window: int = 0):
+    """``fn(q, k, v, q_pos, k_pos, window)``, the attention core (no
+    weights); a partitioner runs it on each rank's heads and keys."""
+    if _PARTITIONER is None:
+        return fn(q, k, v, q_pos, k_pos, window)
+    return _PARTITIONER.attention(fn, q, k, v, q_pos, k_pos, window)
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a partitioner looks each rank's vocab slice up
+    (vocab-parallel, the other ranks' rows masked to 0)."""
+    if _PARTITIONER is None:
+        return table[tokens]
+    return _PARTITIONER.embed(table, tokens)
+
+
+def pick_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]`` along the last dim; a partitioner picks
+    from each rank's vocab slice (vocab-parallel)."""
+    if _PARTITIONER is None:
+        return logits.gather(-1, labels.long()[..., None])[..., 0]
+    return _PARTITIONER.pick(logits, labels)
+
+
+def cache_write(buf: torch.Tensor, dim: int, slot: torch.Tensor,
+                value: torch.Tensor) -> torch.Tensor:
+    """``buf.index_copy_(dim, slot, value)``; a partitioner writes a
+    sequence-sharded cache on the rank that holds the slot."""
+    if _PARTITIONER is None:
+        return buf.index_copy_(dim, slot, value)
+    return _PARTITIONER.cache_write(buf, dim, slot, value)
+
+
+def ffn_core(fn, x, *weights):
+    """``fn(x, *weights)``, a column- then row-parallel block (the dense
+    FFN); a partitioner runs it on each rank's columns."""
+    if _PARTITIONER is None:
+        return fn(x, *weights)
+    return _PARTITIONER.ffn(fn, x, *weights)
+
+
+def decode_expert_core(fn, x, weights, idx, *experts):
+    """``fn(x, weights, idx, *experts)``, one token's chosen experts; a
+    partitioner runs it on each rank's experts or expert columns."""
+    if _PARTITIONER is None:
+        return fn(x, weights, idx, *experts)
+    return _PARTITIONER.decode_experts(fn, x, weights, idx, *experts)
+
+
+def ssd_core(fn, xh, dt, a, b, c, chunk: int):
+    """``fn(xh, dt, a, b, c, chunk)``, Mamba-2's chunked scan; a
+    partitioner runs it on each rank's heads."""
+    if _PARTITIONER is None:
+        return fn(xh, dt, a, b, c, chunk)
+    return _PARTITIONER.ssd(fn, xh, dt, a, b, c, chunk)
+
+
+def channel_core(fn, u, prior, *weights):
+    """``fn(u, prior, *weights)``, a per-channel op over u (B,S,C) whose
+    weights' last dim is the channel (a depthwise conv); a partitioner
+    runs it on each rank's channels."""
+    if _PARTITIONER is None:
+        return fn(u, prior, *weights)
+    return _PARTITIONER.channels(fn, u, prior, *weights)
+
+
+def local_core(fn, x, *args):
+    """``fn(x, *args)``, whose tensor results keep x's layout (a cache
+    packed from the prompt's keys); a partitioner runs it on each rank's
+    shard of x (and of the other tensors of ``args``, laid out as x)."""
+    if _PARTITIONER is None:
+        return fn(x, *args)
+    return _PARTITIONER.local(fn, x, *args)
+
+
+def expert_core(fn, dispatch, combine, x, *weights):
+    """``fn(dispatch, combine, x, *weights)``, GShard's expert products;
+    a partitioner runs it on each rank's experts or expert columns."""
+    if _PARTITIONER is None:
+        return fn(dispatch, combine, x, *weights)
+    return _PARTITIONER.experts(fn, dispatch, combine, x, *weights)
+
+
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
                 window: int = 0) -> torch.Tensor:
     """Boolean (..., Sq, Sk) mask. window>0 adds a sliding-window band."""

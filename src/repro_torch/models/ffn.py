@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
-                                       swiglu)
+                                       decode_expert_core, expert_core,
+                                       ffn_core, swiglu)
 
 MOE_CAPACITY_FACTOR = 1.25
 
@@ -49,9 +50,13 @@ def init_moe(init: Init, cfg: ModelConfig) -> Params:
 
 
 def dense_ffn(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("bsd,df->bsf", x, p["w_gate"])
-    u = torch.einsum("bsd,df->bsf", x, p["w_up"])
-    return torch.einsum("bsf,fd->bsd", swiglu(g, u).to(x.dtype), p["w_down"])
+    return ffn_core(_swiglu_ffn, x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _swiglu_ffn(x, w_gate, w_up, w_down):
+    g = torch.einsum("bsd,df->bsf", x, w_gate)
+    u = torch.einsum("bsd,df->bsf", x, w_up)
+    return torch.einsum("bsf,fd->bsd", swiglu(g, u).to(x.dtype), w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +98,18 @@ def gshard_capacity(cfg: ModelConfig, s: int,
 # the three paths
 # ---------------------------------------------------------------------------
 
+def _gshard_experts(dispatch, combine, x, w_gate, w_up, w_down):
+    """The experts' products between GShard's dispatch and combine:
+    (B,S,E,C) one-hots and weights, x (B,S,D) -> y (B,S,D)."""
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x)        # (B,E,C,D)
+    g = torch.einsum("becd,edf->becf", xe, w_gate)
+    u = torch.einsum("becd,edf->becf", xe, w_up)
+    h = swiglu(g, u)
+    ye = torch.einsum("becf,efd->becd", h.float(),
+                      w_down.float()).to(x.dtype)
+    return torch.einsum("bsec,becd->bsd", combine, ye)
+
+
 def moe_gshard_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                        capacity_factor: float = MOE_CAPACITY_FACTOR):
     """x (B,S,D) -> (y, aux). Each (token, choice) takes the next slot of
@@ -112,13 +129,8 @@ def moe_gshard_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     cap_oh = (pos_in_e[..., None] == slots).to(x.dtype)     # (B,S,k,E,C)
     dispatch = cap_oh.sum(dim=2)                            # (B,S,E,C)
     combine = (cap_oh * weights[..., None, None].to(x.dtype)).sum(dim=2)
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x)        # (B,E,C,D)
-    g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
-    h = swiglu(g, u)
-    ye = torch.einsum("becf,efd->becd", h.float(),
-                      p["w_down"].float()).to(x.dtype)
-    y = torch.einsum("bsec,becd->bsd", combine, ye)
+    y = expert_core(_gshard_experts, dispatch, combine, x, p["w_gate"],
+                    p["w_up"], p["w_down"])
     if "shared" in p:
         y = y + dense_ffn(p["shared"], x)
     return y, aux
@@ -169,6 +181,18 @@ def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
     return y, aux
 
 
+def _decode_experts(x, weights, idx, w_gate, w_up, w_down):
+    """x (B,1,D), the routing weights and indices (B,1,k) -> y (B,1,D)."""
+    idxf = idx[:, 0]                                        # (B,k)
+    xe = x[:, :, None, :]                                   # (B,1,1,D)
+    g = torch.matmul(xe, w_gate[idxf])                      # (B,k,1,F)
+    u = torch.matmul(xe, w_up[idxf])
+    h = swiglu(g, u)
+    ye = torch.matmul(h.float(), w_down[idxf].float())[:, :, 0]
+    return torch.einsum("bkd,bk->bd", ye, weights[:, 0])[:, None, :].to(
+        x.dtype)
+
+
 def moe_decode(p: Params, cfg: ModelConfig, x: torch.Tensor):
     """x (B,1,D) -> (y, aux): the k chosen experts' weights gathered per
     row, (B,k,D,F) each (mixtral-8x7b at batch 4: 2.82 GB of bf16 copies
@@ -177,13 +201,8 @@ def moe_decode(p: Params, cfg: ModelConfig, x: torch.Tensor):
     if s != 1:
         raise ValueError(f"moe_decode expects one token per row, got S={s}")
     weights, idx, aux = route(p, cfg, x)                    # (B,1,k)
-    idxf = idx[:, 0]                                        # (B,k)
-    xe = x[:, :, None, :]                                   # (B,1,1,D)
-    g = torch.matmul(xe, p["w_gate"][idxf])                 # (B,k,1,F)
-    u = torch.matmul(xe, p["w_up"][idxf])
-    h = swiglu(g, u)
-    ye = torch.matmul(h.float(), p["w_down"][idxf].float())[:, :, 0]
-    y = torch.einsum("bkd,bk->bd", ye, weights[:, 0])[:, None, :].to(x.dtype)
+    y = decode_expert_core(_decode_experts, x, weights, idx, p["w_gate"],
+                           p["w_up"], p["w_down"])
     if "shared" in p:
         y = y + dense_ffn(p["shared"], x)
     return y, aux

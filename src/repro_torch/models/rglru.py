@@ -16,7 +16,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Init, ModelConfig, Params, dense_init
+from repro_torch.models.common import (Init, ModelConfig, Params,
+                                       channel_core, dense_init, local_core,
+                                       pin)
 
 _C = 8.0  # RG-LRU gate temperature (Griffin's fixed constant)
 
@@ -58,14 +60,17 @@ def _conv(p: Params, u: torch.Tensor,
           prior: torch.Tensor = None) -> torch.Tensor:
     """Depthwise causal conv of width W over u (B,S,W); ``prior``
     (B,W-1,W) is the history before u (None: zeros)."""
-    w = p["conv_w"]
+    return channel_core(_depthwise, u, prior, p["conv_w"], p["conv_b"])
+
+
+def _depthwise(u, prior, w, b):
     width, s = w.shape[0], u.shape[1]
     up = (F.pad(u, (0, 0, width - 1, 0)) if prior is None
           else torch.cat([prior, u], dim=1))
     out = up[:, 0:s, :] * w[0]
     for i in range(1, width):
         out = out + up[:, i:i + s, :] * w[i]
-    return (out + p["conv_b"]).to(u.dtype)
+    return (out + b).to(u.dtype)
 
 
 def _gates(p: Params, xr: torch.Tensor):
@@ -85,11 +90,13 @@ def _gates(p: Params, xr: torch.Tensor):
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t over axis 1 (S), from h_{-1} = 0."""
-    h = b[:, 0]
+    """h_t = a_t h_{t-1} + b_t over axis 1 (S), from h_{-1} = 0 (the steps'
+    slices taken once: two ops a step)."""
+    a_t, b_t = a.unbind(1), b.unbind(1)
+    h = b_t[0]
     out = [h]
-    for t in range(1, a.shape[1]):
-        h = a[:, t] * h + b[:, t]
+    for t in range(1, len(a_t)):
+        h = a_t[t] * h + b_t[t]
         out.append(h)
     return torch.stack(out, dim=1)
 
@@ -104,7 +111,7 @@ def rglru_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                     approximate="tanh")
     conv_in = torch.einsum("bsd,dw->bsw", x, p["w_x"])
     a, b = _gates(p, _conv(p, conv_in))
-    h = rglru_scan(a, b)                                    # (B,S,W) fp32
+    h = local_core(rglru_scan, a, b)                        # (B,S,W) fp32
     merged = (h * y_gate).to(x.dtype)
     out = torch.einsum("bsw,wd->bsd", merged, p["w_out"])
     if return_state:
@@ -126,8 +133,8 @@ def rglru_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     merged = (h[:, None, :] * y_gate).to(x.dtype)
     # fp32 accumulation, one rounding to x's dtype: as ssm.ssd_decode's
     out = torch.einsum("bsw,wd->bsd", merged, p["w_out"])
-    cache["state"].copy_(h)
-    cache["conv"].copy_(new_conv)
+    cache["state"].copy_(pin(h, cache["state"]))
+    cache["conv"].copy_(pin(new_conv, cache["conv"]))
     return out, cache
 
 

@@ -15,7 +15,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Init, ModelConfig, Params, dense_init
+from repro_torch.models.common import (Init, ModelConfig, Params,
+                                       channel_core, dense_init, pin,
+                                       ssd_core)
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -60,16 +62,19 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor,
 
 def _causal_conv(p: Params, u: torch.Tensor,
                  prior: torch.Tensor = None) -> torch.Tensor:
-    """Depthwise causal conv of width W over u (B,S,C); ``prior``
-    (B,W-1,C) is the history before u (None: zeros)."""
-    w = p["conv_w"]                                         # (W, C)
-    width, s = w.shape[0], u.shape[1]
+    """Depthwise causal conv of width W over u (B,S,C), then SiLU;
+    ``prior`` (B,W-1,C) is the history before u (None: zeros)."""
+    return channel_core(_conv_silu, u, prior, p["conv_w"], p["conv_b"])
+
+
+def _conv_silu(u, prior, w, b):
+    width, s = w.shape[0], u.shape[1]                       # w (W, C)
     up = (F.pad(u, (0, 0, width - 1, 0)) if prior is None
           else torch.cat([prior, u], dim=1))
     out = up[:, 0:s, :] * w[0]
     for i in range(1, width):
         out = out + up[:, i:i + s, :] * w[i]
-    return F.silu((out + p["conv_b"]).float()).to(u.dtype)
+    return F.silu((out + b).float()).to(u.dtype)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -154,7 +159,7 @@ def ssd_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     xh = xin.reshape(*xin.shape[:2], h, ph)
-    y, state = ssd_scan(xh, dt, a, b_, c_, cfg.ssm_chunk)
+    y, state = ssd_core(ssd_scan, xh, dt, a, b_, c_, cfg.ssm_chunk)
     y = y + p["d_skip"][:, None] * xh.float()
     y = y.reshape(*x.shape[:2], di)
     y = _gated_norm(p, y, z, cfg.norm_eps)
@@ -191,8 +196,8 @@ def ssd_decode(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params):
     # (cuBLAS may reduce split-K partials in bf16 unless
     # allow_bf16_reduced_precision_reduction is off)
     out = torch.einsum("bse,ed->bsd", y.to(x.dtype), p["w_out"])
-    cache["state"].copy_(state)
-    cache["conv"].copy_(new_conv)
+    cache["state"].copy_(pin(state, cache["state"]))
+    cache["conv"].copy_(pin(new_conv, cache["conv"]))
     return out, cache
 
 

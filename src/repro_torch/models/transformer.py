@@ -34,9 +34,28 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.cache import full_kv_to_cache, mla_kv_to_cache
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
-                                       embed_init, init_rmsnorm, rmsnorm)
+                                       embed_init, embed_rows, init_rmsnorm,
+                                       local_core, pick_logits, pin,
+                                       rmsnorm)
 from repro_torch.tree import tree_leaves, tree_unflatten
 from repro_torch.models.frontends import frontend_dim
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 layer-weight gather hook
+# ---------------------------------------------------------------------------
+# Under the FSDP sharding policy (the dry run), expert weights are STORED
+# data-sharded; the hook redistributes each layer group's slice back to
+# its tensor-parallel layout at use, inside the group's activation
+# checkpoint, so one group's gathered weights are live at a time.
+_LAYER_PARAM_HOOK = None
+
+
+def set_layer_param_hook(fn) -> None:
+    """fn(group_params_dict) -> the dict to run the group with, or None to
+    disable."""
+    global _LAYER_PARAM_HOOK
+    _LAYER_PARAM_HOOK = fn
 
 
 # ---------------------------------------------------------------------------
@@ -79,7 +98,7 @@ def _apply_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, _ = ffn_mod.moe_decode(p["ffn"], cfg, h)
     else:
         y, aux = ffn_mod.moe_forward(p["ffn"], cfg, h, path=moe_path)
-    return x + y, aux
+    return pin(x + y), aux
 
 
 def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
@@ -96,12 +115,13 @@ def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
                               _window(cfg, kind), return_kv=want)
         if want:
             y, (k, v) = y
-            cache = full_kv_to_cache(k, v, cache_seq, _window(cfg, kind))
+            cache = local_core(full_kv_to_cache, k, v, cache_seq,
+                               _window(cfg, kind))
     elif kind == "mla":
         y = attn.mla_forward(p["mixer"], cfg, h, positions, return_kv=want)
         if want:
             y, (ckv, krope) = y
-            cache = mla_kv_to_cache(ckv, krope, cache_seq)
+            cache = local_core(mla_kv_to_cache, ckv, krope, cache_seq)
     elif kind == "ssd":
         y = ssm_mod.ssd_forward(p["mixer"], cfg, h, return_state=want)
     elif kind == "rec":
@@ -110,7 +130,7 @@ def apply_layer(p: Params, cfg: ModelConfig, kind: str, x: torch.Tensor,
         raise ValueError(kind)
     if want and cache is None:
         y, cache = y
-    x = x + y
+    x = pin(x + y)
     aux = None
     if cfg.d_ff > 0:
         x, aux = _apply_ffn(p, cfg, x, moe_path)
@@ -131,7 +151,7 @@ def apply_layer_decode(p: Params, cfg: ModelConfig, kind: str,
         y, _ = rglru_mod.rglru_decode(p["mixer"], cfg, h, cache)
     else:
         raise ValueError(kind)
-    x = x + y
+    x = pin(x + y)
     if cfg.d_ff > 0:
         x, _ = _apply_ffn(p, cfg, x, None)
     return x
@@ -168,6 +188,12 @@ def init_params(cfg: ModelConfig, device: Device = None,
     return p
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The params tree on the ``meta`` device: shapes and dtypes, no
+    storage (the dry run's)."""
+    return init_params(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
@@ -180,13 +206,13 @@ def embed_inputs(params: Params, cfg: ModelConfig,
         parts.append(torch.einsum("bse,ed->bsd", embeds.to(cfg.param_dtype),
                                   params["frontend_proj"]))
     if tokens is not None:
-        parts.append(params["embed"][tokens])
+        parts.append(embed_rows(params["embed"], tokens))
     x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     # sqrt(d_model) in fp32, rounded to x's dtype before the multiply (the
     # reference's order: in bf16, sqrt(896) is 29.875); a Python scalar,
     # so no host-to-device copy (and sync) per step
     scale = torch.tensor(np.sqrt(np.float32(cfg.d_model))).to(x.dtype)
-    return x * float(scale)
+    return pin(x * float(scale))
 
 
 def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor
@@ -231,7 +257,9 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
     caches); aux is the layers' MoE aux losses summed in fp32, in stack
     order. ``remat`` runs each group's whole pattern, and each remainder
     layer, under one activation checkpoint (recomputed in the backward
-    pass; the stack draws nothing random, so no RNG state is kept)."""
+    pass; the stack draws nothing random, so no RNG state is kept). The
+    layer-param hook, when set, maps each group's slice inside it, as the
+    reference's scan body does (remainder layers are not mapped)."""
     pattern = cfg.layer_pattern
 
     def layers(units, x, aux):
@@ -244,21 +272,26 @@ def _run_stack(params: Params, cfg: ModelConfig, x: torch.Tensor,
             caches.append(c)
         return x, aux, caches
 
-    def run(units, x, aux):
+    def group(gp, x, aux):
+        if _LAYER_PARAM_HOOK is not None:
+            gp = _LAYER_PARAM_HOOK(gp)
+        return layers([(gp[f"pos{i}"], kind)
+                       for i, kind in enumerate(pattern)], x, aux)
+
+    def run(fn, units, x, aux):
         if remat:
-            return checkpoint(layers, units, x, aux, use_reentrant=False,
+            return checkpoint(fn, units, x, aux, use_reentrant=False,
                               preserve_rng_state=False)
-        return layers(units, x, aux)
+        return fn(units, x, aux)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     group_caches: List[Params] = []
     for gp in _groups(params["groups"], cfg.n_groups):
-        x, aux, caches = run([(gp[f"pos{i}"], kind)
-                              for i, kind in enumerate(pattern)], x, aux)
+        x, aux, caches = run(group, gp, x, aux)
         group_caches.append({f"pos{i}": c for i, c in enumerate(caches)})
     rem_caches = []
     for i, p in enumerate(params["rem"]):
-        x, aux, (c,) = run([(p, pattern[i])], x, aux)
+        x, aux, (c,) = run(layers, [(p, pattern[i])], x, aux)
         rem_caches.append(c)
     return x, aux, group_caches, rem_caches
 
@@ -324,7 +357,7 @@ def token_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
     reference's one-hot contraction picks). With a mask, the masked mean
     ``-sum(ll m) / max(sum m, 1)``."""
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    picked = pin(pick_logits(logits, labels))
     ll = picked - lse
     if mask is None:
         return -ll.mean()

@@ -44,3 +44,16 @@ def tree_unflatten(tree, leaves: Sequence):
     if next(it, end) is not end:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def tree_map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` applied to every leaf, ``path`` the tuple of
+    dict keys and list indices leading to it (``jax.tree_util.
+    tree_map_with_path``'s key path)."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
