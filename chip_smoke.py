@@ -167,8 +167,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     (mixtral-smoke, dsv2-smoke; params drawn on the CPU): 8 greedy
     tokens, every routing decision's experts (``torch.sort`` and
     ``argsort`` on the card against the CPU's), the logits within 1e-4,
-    and the GShard forward's logits and aux loss, card against CPU; no
-    kernel of the port launched;
+    and the GShard forward's logits and aux loss, card against CPU; every
+    dropless MoE layer forward on the card launched ``ragged_dot`` 3
+    times and no other kernel of the port launched (the dropless FFN
+    wrapped to count its calls, ``DroplessCalls``);
 22. LM training (``repro_torch.launch.train``, ``make_train_step``): the
     ten reduced configs in fp32 (vectors nudged by numpy noise), 3 steps
     of Adam on warmup-cosine with clip 1.0 on the card and on the CPU
@@ -187,7 +189,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     to fit ~40 GB at Adam's 24 B a param (one layer at least;
     internvl2-76b's and deepseek-v2-236b's one layer take SGD), the cuts
     printed, 3 bf16 steps each: loss finite, params moved, ms a step,
-    peak memory; no kernel of the port launched;
+    peak memory; the only kernels of the port launched are the dropless
+    MoE's grouped products: ``ragged_dot`` 3 a layer's forward (remat's
+    recompute included) and 3 a backward, ``ragged_dot_wgrad`` 3 a
+    backward;
 23. client-axis sharding (``repro_torch.sharding``), on meshes that
     repeat the one card (the engines' ``mesh=`` seam): phase 4's
     repository through the row-strip Eq. 2 rebuild on 1, 2 and 8 shards,
@@ -212,18 +217,36 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     held against its plain version (phase 3's tolerances), with each
     kernel's launches counted; and the cost model's operations and bytes
     of B1-B4's plain versions at phase 3's, 6's and 8's shapes, beside
-    this run's bound of each;
+    this run's bound of each (the grouped product's three entries at the
+    launch rule's probe shapes too, 1, 7 and 160 groups);
 25. the LM dry run (``launch/dryrun.py``): qwen2-0.5b at full width on
     phase 22's step (bf16, Adam, batch 8 x seq 128) traced on a 1x1 mesh
     of fake card tensors against one real step on the card (argument
     bytes and FLOPs equal, the predicted peak within DRYRUN_PEAK_RTOL of
     ``max_memory_allocated``), then DRYRUN_ROWS on the production meshes
     (16x16, 2x16x16), one ``python -m repro_torch.launch.dryrun`` each,
-    side by side, each row printed; any FAIL fails the phase;
+    side by side, each row printed (mixtral-8x7b's prefill on both MoE
+    paths; the pure data-parallel row must move collective bytes); any
+    FAIL fails the phase;
+26. the dropless MoE's grouped product (``kernels/ragged_dot.py``): the
+    forward, the input gradient (rhs read transposed) and the weight
+    gradient in bf16 and fp32 at mixtral-8x7b's and deepseek-v2-236b's
+    published widths (phase 21's 256 prefill tokens, phase 22's 1024
+    train tokens; uniformly routed group sizes), each against its plain
+    version within the phase's tolerances, with device and back-to-back
+    ms beside its bound, the plain version's ms and the library's
+    (``torch._grouped_mm`` where this torch takes the dtype and strides,
+    else the per-expert cuBLAS loop); the edge cases at odd shapes (one
+    group holding every row, empty groups and rows past the sum, 160
+    groups); one full-width dropless FFN's forward and backward of each
+    MoE architecture under ``set_sync_debug_mode("error")``, and, not
+    gated, whether a whole dropless prefill and train step are sync-free;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-19 and 23), then the last line
+    its launches in phases 14-19 and 23; the grouped product's two
+    kernels' from phases 21 and 22, their times from phase 26), then the
+    last line
     ``{"ok": true, "device": {...}}``.
 
 Every time printed names the card and its power limit. The measured
@@ -237,6 +260,15 @@ this, other), at a real upload's strips, 16-64 oracle query rows and the
 server-round strip: device and back-to-back times of the other's 64 x 64
 FFMA tile alone where it has one, else of its entry point on the stored
 lse (``chiprun_out/b4_against.json``; no result line).
+
+    python3 chip_smoke.py --moe-against OTHER_CHECKOUT
+
+times the dropless MoE path of another checkout and of this one the same
+way: mixtral-8x7b and deepseek-v2-236b at phase 21's depth cuts, a
+dropless forward of phase 21's prefill batch and a dropless train step
+of phase 22's batch, host ms a call and one call's kernels and device
+ms under the profiler (``chiprun_out/moe_against.json``; no result
+line).
 """
 from __future__ import annotations
 
@@ -284,7 +316,10 @@ TOL = {"pairwise_kl_pair": (1e-4, 1e-4), "soft_ce": (1e-3, 1e-5),
        # the int8 dequant split's hi + lo and row term, on the stored lse
        "int8_pairwise_kl_split": (1e-5, 1e-5),
        # the split's hi + lo and row term (exp may differ in a last bit)
-       "pairwise_kl_split": (1e-5, 1e-5)}
+       "pairwise_kl_split": (1e-5, 1e-5),
+       # the grouped product in fp32 at the probe shapes (K = 21; the
+       # weight gradient sums up to 257 rows): sums in another order
+       "ragged_dot": (1e-5, 1e-5), "ragged_dot_wgrad": (1e-5, 1e-5)}
 # the 3xTF32 strip's error against fp64 may be at most this multiple of
 # the fp32 plain version's (cuBLAS with TF32 off)
 FP64_ERR_RATIO = 2.0
@@ -2230,6 +2265,7 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
                                               length)
 
     ops.reset_launch_counts()
+    DROPLESS.reset()
     p32 = tree_map(lambda t: t.float(), params)
     cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32)
     r32, want, routes32 = served_and_taught(p32, cfg32)
@@ -2261,7 +2297,9 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
     control_logits = teacher(params, cfg, swapped)
     control = lm_gap(got, control_logits)
     counts = ops.launch_counts()
-    check(not any(counts.values()), f"{label}: a kernel launched {counts}")
+    moe_launches = DROPLESS.hold(label, counts)
+    check(DROPLESS.calls > 0 or not cfg.is_moe,
+          f"{label}: no dropless MoE forward ran on the card")
     limit = LM_BF16_RTOL[(arch, prompt_len)]
     check(fp32 <= LM_FP32_RTOL,
           f"{label}: fp32 decode is {fp32:.3e} off its forward")
@@ -2316,7 +2354,8 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
                                 for k, r in disagree.items())
                     + f"; bf16 over the {int(clean.sum())} (row, step) "
                     f"pairs before a row's first flip: {clean_bf16:.3e} "
-                    f"(limit {clean_limit:g}; control {clean_control:.3e})")
+                    f"(limit {clean_limit:g}; control {clean_control:.3e})"
+                    f"; {moe_launches}")
     print(f"  [{CARD}] {label}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{param_bytes / 1e9:.3f} GB of bf16 params; prefill "
@@ -2460,7 +2499,9 @@ def print_depth_cut(arch: str) -> None:
 def moe_serving_phase(dev) -> dict:
     """MoE and MLA serving: mixtral-8x7b and deepseek-v2-236b at their
     published widths, the depth cut, through phase 20's case runner; the
-    reduced configs' fp32 twins against the CPU."""
+    reduced configs' fp32 twins against the CPU. Every dropless MoE layer
+    forward on the card launches ragged_dot 3 times, and nothing else of
+    the port launches (``DroplessCalls.hold``)."""
     from repro_torch.kernels import ops
     check(torch.get_float32_matmul_precision() == "highest",
           "fp32 matmuls may run in TF32: MoE routing needs IEEE fp32")
@@ -2469,9 +2510,14 @@ def moe_serving_phase(dev) -> dict:
         print_depth_cut(arch)
         out["cases"].append(lm_case(dev, arch, LM_PROMPT))
     ops.reset_launch_counts()
+    DROPLESS.reset()
     out["twins"] = {arch: moe_twin(dev, arch) for arch in MOE_CASES}
     counts = ops.launch_counts()
-    check(not any(counts.values()), f"the MoE twins launched {counts}")
+    print(f"  the MoE twins: {DROPLESS.hold('the MoE twins', counts)}")
+    check(DROPLESS.calls > 0, "the MoE twins ran no dropless forward")
+    out["launches"] = {name: n + sum(c["launches"][name]
+                                     for c in out["cases"])
+                       for name, n in counts.items()}
     return out
 
 
@@ -2841,7 +2887,9 @@ def train_other(dev, arch: str) -> dict:
 def lm_training_phase(dev) -> dict:
     """LM training on the card: the ten reduced configs' fp32 twins,
     qwen2-0.5b at full width through ``train()``, the other
-    architectures' bf16 steps; no kernel of the port launched."""
+    architectures' bf16 steps; the only kernels of the port launched are
+    the dropless MoE's grouped products, 3 + 3 + 3 a layer's forward and
+    backward (``DroplessCalls.hold``)."""
     from repro_torch.configs import ARCH_IDS, get_reduced
     from repro_torch.kernels import ops
     check(torch.get_float32_matmul_precision() == "highest"
@@ -2849,6 +2897,7 @@ def lm_training_phase(dev) -> dict:
           "TF32 matmuls are on: the twins and MoE routing need IEEE fp32")
     torch.cuda.empty_cache()
     ops.reset_launch_counts()
+    DROPLESS.reset()
     out = {"twins": []}
     t0 = time.perf_counter()
     for arch in ARCH_IDS:
@@ -2864,7 +2913,10 @@ def lm_training_phase(dev) -> dict:
     out["others"] = [train_other(dev, arch) for arch in
                      TRAIN_OTHER_FULL + TRAIN_OTHER_CUT]
     counts = ops.launch_counts()
-    check(not any(counts.values()), f"LM training launched {counts}")
+    out["moe"] = DROPLESS.hold("LM training", counts)
+    check(DROPLESS.backward > 0, "LM training ran no dropless backward")
+    print(f"  LM training on the card: {out['moe']}")
+    out["launches"] = counts
     return out
 
 
@@ -3830,6 +3882,21 @@ def probe_launches(dev) -> list:
                   dk.plain(qa, sa, qb, sb)))
     cases.append(("int8_pairwise_kl_pair", ops.int8_pairwise_kl(qa, sa, za),
                   dk.plain(qa, sa, qa, sa)))
+    # the grouped product: M = PROBE_M rows by K = R*C into N = PROBE_U
+    # columns, group sizes summing to 10 rows short of M (empty groups
+    # among 160), its input gradient back and its weight gradient, fp32
+    k = r * c
+    for g in lr.PROBE_GROUPS:
+        sizes = torch.from_numpy(rng.multinomial(m - 10, np.ones(g) / g)
+                                 .astype(np.int32)).to(dev)
+        lhs, rhs, dout = ragged_operands(m, k, u, g, torch.float32, dev, g)
+        cases += [("ragged_dot", ops.ragged_dot(lhs, rhs, sizes),
+                   ref.ragged_dot_ref(lhs, rhs, sizes)),
+                  ("ragged_dot", ops.ragged_dot(dout, rhs, sizes,
+                                                transpose_rhs=True),
+                   ref.ragged_dot_ref(dout, rhs, sizes, True)),
+                  ("ragged_dot_wgrad", ops.ragged_dot_wgrad(lhs, dout, sizes),
+                   ref.ragged_dot_wgrad_ref(lhs, dout, sizes))]
     for many in lr.PROBE_MANY:
         qm, sm, zm, lm = int8_operands((many, r, c), dev, 27)
         for t in lr.PROBE_THIN:
@@ -3933,10 +4000,13 @@ def analysis_phase(dev, rows: dict) -> dict:
 DRYRUN_PEAK_RTOL = 0.15
 # the production-mesh rows phase 25 traces: (arch, shape, flags), each a
 # ``python -m repro_torch.launch.dryrun`` of its own, all started together
+# (the pure data-parallel row on 16x16: train_4k's 256 rows divide its
+# 256 ranks, where on 2x16x16's 512 the batch stays replicated)
 DRYRUN_ROWS = (
     ("qwen2-0.5b", "train_4k", ()),
-    ("qwen2-0.5b", "train_4k", ("--multi-pod", "--dp-over-model")),
+    ("qwen2-0.5b", "train_4k", ("--dp-over-model",)),
     ("mixtral-8x7b", "prefill_32k", ()),
+    ("mixtral-8x7b", "prefill_32k", ("--moe-path", "dropless")),
     ("deepseek-v2-236b", "train_4k", ("--multi-pod", "--fsdp")),
     ("gemma3-1b", "long_500k", ()),
 )
@@ -4019,18 +4089,20 @@ def dryrun_rows() -> list:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     t0 = time.perf_counter()
-    for arch, shape, flags in DRYRUN_ROWS:
+    for i, (arch, shape, flags) in enumerate(DRYRUN_ROWS):
+        # a directory a row: two rows may share an (arch, shape, mesh) name
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, *flags, "--out", str(out_dir)]
+               arch, "--shape", shape, *flags, "--out",
+               str(out_dir / f"row{i}")]
         procs.append(subprocess.Popen(cmd, env=env, cwd=ROOT,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
     rows = []
-    for (arch, shape, flags), proc in zip(DRYRUN_ROWS, procs):
+    for i, ((arch, shape, flags), proc) in enumerate(zip(DRYRUN_ROWS, procs)):
         text, _ = proc.communicate()
         mesh = "multi" if "--multi-pod" in flags else "single"
         tag = f"{arch}__{shape}__{mesh}"
-        path = out_dir / f"{tag}.json"
+        path = out_dir / f"row{i}" / f"{tag}.json"
         row = json.loads(path.read_text()) if path.exists() else {
             "status": "FAIL", "error": text[-2000:]}
         summary = [ln for ln in text.splitlines()
@@ -4038,6 +4110,10 @@ def dryrun_rows() -> list:
         check(proc.returncode == 0 and row["status"] == "OK",
               f"dry run {tag} {' '.join(flags)}: {row.get('status')} "
               f"{row.get('error', '')}")
+        if "--dp-over-model" in flags:
+            check(row["coll_bytes_per_dev"] > 0,
+                  f"dry run {tag} {' '.join(flags)}: no collective bytes: "
+                  f"the batch is not sharded")
         mem = row["memory"]
         print(f"  {tag} {' '.join(flags)}: {row['mesh']}, traced in "
               f"{row['trace_s']} s; per device {row['hlo_flops_per_dev']:.3e} "
@@ -4064,6 +4140,492 @@ def dryrun_phase(dev) -> dict:
     return {"host_mesh": host, "rows": rows, "wall_s": wall}
 
 
+
+# --------------------------------------------------------------------------
+# phase 26: the dropless MoE's grouped product (kernels/ragged_dot.py)
+# --------------------------------------------------------------------------
+# (label, tokens, top k, D, F, experts): the two MoE architectures'
+# published widths at phase 21's prefill (batch 4 x prompt 64) and phase
+# 22's train batch (8 x seq 128); the product's rows are tokens x top k
+RAGGED_CASES = (("mixtral-8x7b prefill", LM_BATCH * LM_PROMPT, 2, 4096,
+                 14336, 8),
+                ("deepseek-v2-236b prefill", LM_BATCH * LM_PROMPT, 6, 5120,
+                 1536, 160),
+                ("mixtral-8x7b train", 8 * 128, 2, 4096, 14336, 8))
+# the edge cases at odd shapes (no extent a tile's multiple): (M, K, N)
+# and the group sizes' pattern
+RAGGED_EDGE = (257, 21, 131)
+# fp32 (IEEE FFMA against cuBLAS without TF32): sums in another order,
+# held to this share of the largest |output|; bf16: one rounding of an
+# fp32 sum, held against the plain version on the same values in fp32 to
+# half a bf16 spacing (2^-8 of the value) plus this share of the largest
+# |output| for the fp32 sums' order near zero
+RAGGED_FP32_RTOL = 1e-5
+RAGGED_BF16_FLOOR = 1e-2 * 2.0 ** -8
+RAGGED_ENTRIES = ("forward", "input_grad", "wgrad")
+
+
+class DroplessCalls:
+    """The dropless MoE FFN's calls and the grouped-product launches each
+    made: ``repro_torch.models.ffn.moe_dropless_forward`` wrapped once
+    (``moe_forward`` looks it up at each call), each call's ``ragged_dot``
+    launches read around it, and a hook on its output counting the calls
+    whose backward ran (a remat recompute's output never sees one); calls
+    on the card only, no sync added. ``reset`` beside
+    ``ops.reset_launch_counts``."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls, self.backward, self.per_call = 0, 0, set()
+
+    def install(self) -> None:
+        from repro_torch.kernels import ops
+        from repro_torch.models import ffn
+        plain = ffn.moe_dropless_forward
+
+        def counted(p, cfg, x):
+            if not x.is_cuda:              # a CPU twin launches nothing
+                return plain(p, cfg, x)
+            before = ops.launch_counts()["ragged_dot"]
+            try:
+                y, aux = plain(p, cfg, x)
+            finally:
+                # a remat recompute stops early (an exception) once it
+                # has rebuilt what the backward saved, past the products
+                self.per_call.add(ops.launch_counts()["ragged_dot"] - before)
+                self.calls += 1
+            if y.requires_grad:
+                y.register_hook(self._backward)
+            return y, aux
+
+        ffn.moe_dropless_forward = counted
+
+    def _backward(self, grad) -> None:
+        self.backward += 1
+
+    def hold(self, label: str, counts: dict) -> str:
+        """Fails unless ``counts`` (read since the last reset) are the
+        grouped products of the dropless calls since then: ``ragged_dot``
+        3 a layer's forward (each call exactly 3) plus 3 a backward,
+        ``ragged_dot_wgrad`` 3 a backward, no other kernel of the port."""
+        others = {n: c for n, c in counts.items()
+                  if n not in ("ragged_dot", "ragged_dot_wgrad")}
+        check(not any(others.values()),
+              f"{label}: a kernel off the dropless MoE path launched "
+              f"{others}")
+        check(self.per_call <= {3},
+              f"{label}: a dropless MoE layer's forward launched ragged_dot "
+              f"{sorted(self.per_call)} times (3 expected)")
+        want = (3 * (self.calls + self.backward), 3 * self.backward)
+        got = (counts["ragged_dot"], counts["ragged_dot_wgrad"])
+        check(got == want,
+              f"{label}: ragged_dot / ragged_dot_wgrad launched {got}, not "
+              f"{want}: 3 each of {self.calls} dropless layer forwards, "
+              f"3 + 3 each of {self.backward} backwards")
+        return (f"{self.calls} dropless MoE layer forwards, {self.backward} "
+                f"backwards: ragged_dot {got[0]}, ragged_dot_wgrad {got[1]} "
+                f"launches")
+
+
+DROPLESS = DroplessCalls()
+
+
+def routed_sizes(tokens: int, k: int, g: int, rng) -> np.ndarray:
+    """Group sizes of ``tokens`` tokens each routed to k distinct experts
+    of g drawn uniformly (the sorted choices' experts)."""
+    choice = np.argsort(rng.random((tokens, g)), axis=1)[:, :k]
+    return np.bincount(choice.reshape(-1), minlength=g).astype(np.int32)
+
+
+def edge_sizes(kind: str, m: int, rng) -> np.ndarray:
+    if kind == "one group holds every row":
+        return np.array([0, m, 0], np.int32)
+    if kind == "empty groups, 40 rows past the sum":
+        return np.array([0, 50, 0, 0, m - 90, 0, 0], np.int32)
+    cuts = np.sort(rng.integers(0, m + 1, 159))          # 160 groups
+    return np.diff(np.concatenate([[0], cuts, [m]])).astype(np.int32)
+
+
+def ragged_operands(m: int, k: int, n: int, g: int, dtype, dev, seed: int):
+    """lhs (M,K), rhs (G,K,N) scaled by 1/sqrt(K) as ``dense_init`` draws,
+    and an output gradient (M,N), drawn on the card in fp32 and cast."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    return draw(m, k), draw(g, k, n, scale=k ** -0.5), draw(m, n)
+
+
+def ragged_calls(lhs, rhs, dout, sizes) -> dict:
+    """Each entry's kernel call and plain call on the same operands: the
+    forward, the input gradient (rhs read transposed) and the weight
+    gradient; and the plain call on fp32 copies (the held value)."""
+    from repro_torch.kernels import ragged_dot as rd
+    from repro_torch.kernels.ref import ragged_dot_ref, ragged_dot_wgrad_ref
+    return {
+        "forward": (lambda: rd.ragged_dot(lhs, rhs, sizes, False),
+                    lambda a, b, c: ragged_dot_ref(a, b, sizes)),
+        "input_grad": (lambda: rd.ragged_dot(dout, rhs, sizes, True),
+                       lambda a, b, c: ragged_dot_ref(c, b, sizes, True)),
+        "wgrad": (lambda: rd.ragged_dot_wgrad(lhs, dout, sizes),
+                  lambda a, b, c: ragged_dot_wgrad_ref(a, c, sizes))}
+
+
+def hold_ragged(label: str, got, want32, dtype) -> float:
+    """``got`` against the plain version's fp32 value of the same inputs,
+    within the phase's tolerance for ``dtype``; returns max |error|."""
+    err = (got.float() - want32).abs()
+    top = float(want32.abs().max())
+    if dtype == torch.float32:
+        ok = float(err.max()) <= RAGGED_FP32_RTOL * top
+        limit = f"{RAGGED_FP32_RTOL:g} x max |out| {top:.3e}"
+    else:
+        ok = bool((err <= 2.0 ** -8 * want32.abs()
+                   + RAGGED_BF16_FLOOR * top).all())
+        limit = f"2^-8 |want| + {RAGGED_BF16_FLOOR:.2e} x max |out| {top:.3e}"
+    check(ok, f"{label}: max |error| {float(err.max()):.3e} beyond {limit}")
+    return float(err.max())
+
+
+def grouped_mm_call(entry: str, lhs, rhs, dout, sizes, want32):
+    """The library yardstick: one ``torch._grouped_mm`` call computing
+    ``entry`` (offsets the groups' cumulative sizes), or None with the
+    reason where this torch refuses the dtype or strides, or its result
+    is not ``want32`` (to 1 % of the largest value: the same function)."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    calls = {"forward": lambda: torch._grouped_mm(lhs, rhs, offs=offs),
+             "input_grad": lambda: torch._grouped_mm(
+                 dout, rhs.transpose(-2, -1), offs=offs),
+             "wgrad": lambda: torch._grouped_mm(lhs.t(), dout, offs=offs)}
+    fn = calls[entry]
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, AttributeError) as e:
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    gap = float((got.float() - want32).abs().max())
+    if got.shape != want32.shape or gap > 1e-2 * float(want32.abs().max()):
+        return None, f"its result is off the plain version's by {gap:.3e}"
+    return fn, "torch._grouped_mm"
+
+
+def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
+                g: int, dtype) -> dict:
+    """The three entries at one case's shapes in one dtype: each against
+    its plain version, timed (device and back-to-back ms), beside its
+    bound, the plain version's time and the library yardstick's."""
+    rng = np.random.default_rng(26)
+    m = tokens * top_k
+    sizes_np = routed_sizes(tokens, top_k, g, rng)
+    sizes = torch.from_numpy(sizes_np).to(dev)
+    lhs, rhs, dout = ragged_operands(m, d, f, g, dtype, dev, 26)
+    calls = ragged_calls(lhs, rhs, dout, sizes)
+    f32 = [t.float() for t in (lhs, rhs, dout)]
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    size = lhs.element_size()
+    iters = 10 if dtype == torch.bfloat16 else 3
+    out = {"rows": m, "groups": g, "group_sizes": sizes_np.tolist(),
+           "dtype": str(dtype).split(".")[-1]}
+    for entry, (kernel, plain) in calls.items():
+        name = f"{label} {out['dtype']} {entry}"
+        got = kernel()
+        want32 = plain(*f32)
+        err = hold_ragged(name, got, want32, dtype)
+        plain_out = plain(lhs, rhs, dout)
+        plain_err = float((plain_out.float() - want32).abs().max())
+        del got, plain_out
+        lib, lib_what = grouped_mm_call(entry, lhs, rhs, dout, sizes, want32)
+        del want32
+        ms = cuda_ms(kernel, iters)
+        dms = device_ms(kernel, iters)
+        plain_ms = cuda_ms(lambda: plain(lhs, rhs, dout), 3, warmup=1)
+        if lib is None:                  # the per-expert loop it replaces
+            lib_ms = plain_ms
+            lib_what = f"per-expert cuBLAS loop (torch._grouped_mm: " \
+                       f"{lib_what})"
+        else:                  # back to back: the call reads on the host
+            lib_ms = cuda_ms(lib, iters)
+        # each operand read once, the output written once
+        out_elems = (g * d * f) if entry == "wgrad" else \
+            m * (d if entry == "input_grad" else f)
+        in_elems = m * d + m * f if entry == "wgrad" else \
+            (m * (f if entry == "input_grad" else d) + g * d * f)
+        nbytes = (in_elems + out_elems) * size + 4 * g
+        flops = 2.0 * m * d * f
+        bound_ms = max(nbytes / PEAK_BYTES, flops / peak) * 1e3
+        bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / peak \
+            else "operations"
+        print(f"  [{CARD}] {name} (M={m}, K={d if entry != 'input_grad' else f}"
+              f", N={f if entry != 'input_grad' else d}, G={g}): max |error| "
+              f"{err:.3e} (plain version on these values {plain_err:.3e}); "
+              f"device {dms:.4f} ms, back to back {ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, "
+              f"{flops / 1e9:.1f} GFLOP; {bound_ms / dms:.1%}); plain "
+              f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms back to back "
+              f"[{lib_what}]")
+        out[entry] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
+                      "ms": dms, "back_to_back_ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "library": lib_what, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    del lhs, rhs, dout, f32, calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def ragged_edges(dev) -> dict:
+    """The three entries at RAGGED_EDGE's odd shapes, fp32 and bf16, with
+    one group holding every row, empty groups and rows past the sum, and
+    160 groups: each against its plain version; the rows past the sum and
+    the empty groups' weight gradients 0."""
+    m, k, n = RAGGED_EDGE
+    rng = np.random.default_rng(27)
+    worst = {}
+    for kind in ("one group holds every row",
+                 "empty groups, 40 rows past the sum", "160 groups"):
+        sizes_np = edge_sizes(kind, m, rng)
+        sizes = torch.from_numpy(sizes_np).to(dev)
+        used = int(min(sizes_np.sum(), m))
+        for dtype in (torch.float32, torch.bfloat16):
+            lhs, rhs, dout = ragged_operands(m, k, n, len(sizes_np), dtype,
+                                             dev, 28)
+            f32 = [t.float() for t in (lhs, rhs, dout)]
+            for entry, (kernel, plain) in ragged_calls(lhs, rhs, dout,
+                                                       sizes).items():
+                got = kernel()
+                name = f"edge {kind} {str(dtype).split('.')[-1]} {entry}"
+                err = hold_ragged(name, got, plain(*f32), dtype)
+                if entry == "wgrad":
+                    check(not got[torch.from_numpy(sizes_np == 0)
+                                  .to(dev)].any(),
+                          f"{name}: an empty group's gradient is not 0")
+                else:
+                    check(not got[used:].any(),
+                          f"{name}: a row past the groups is not 0")
+                key = str(dtype).split(".")[-1]
+                worst[key] = max(worst.get(key, 0.0), err)
+    print(f"  [{CARD}] edge cases at (M, K, N) = {RAGGED_EDGE}: one group "
+          f"holding every row, empty groups and 40 rows past the sum, 160 "
+          f"groups; forward, input gradient and weight gradient held to "
+          f"their plain versions, rows past the sum and empty groups' "
+          f"gradients 0; max |error| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    return worst
+
+
+def sync_frame(err: BaseException) -> str:
+    """The innermost frame of the port in ``err``'s traceback."""
+    import traceback
+    frames = [fr for fr in traceback.extract_tb(err.__traceback__)
+              if "repro_torch" in fr.filename]
+    if not frames:
+        return f"{type(err).__name__}: {err}"
+    fr = frames[-1]
+    return (f"{Path(fr.filename).name}:{fr.lineno} ({fr.name}: "
+            f"{fr.line})")
+
+
+def dropless_sync(dev) -> dict:
+    """The dropless FFN's forward and backward at each MoE architecture's
+    published widths (one layer's params, phase 21's 256 prefill tokens)
+    under ``torch.cuda.set_sync_debug_mode("error")``: any host sync fails
+    the phase. Then, not gated, whether a whole dropless prefill step and
+    a whole train step (depth cut, SGD; the loss not read on the host)
+    are sync-free, with the first sync's frame if not."""
+    from repro_torch.configs import InputShape, concrete_inputs, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models.common import Init
+    from repro_torch.models.ffn import init_moe, moe_dropless_forward
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import sgd, single_model
+    out = {}
+    for arch in MOE_CASES:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(29)
+        p = init_moe(Init(None, dev, gen), cfg)
+        for v in p.values():
+            if isinstance(v, torch.Tensor):
+                v.requires_grad_()
+        x = (torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                         device=dev) * 0.5).to(cfg.param_dtype)
+        x.requires_grad_()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_dropless_forward(p, cfg, x)
+            (y.float().square().mean() + aux).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(counts["ragged_dot"] == 6 and counts["ragged_dot_wgrad"] == 3,
+              f"{arch}: the FFN's forward and backward launched {counts}")
+        check(bool(torch.isfinite(x.grad).all()),
+              f"{arch}: non-finite input gradient")
+        del p, x, y, aux
+        torch.cuda.empty_cache()
+        # whole steps, one layer (phase 22's deepseek-v2-236b cut)
+        steps = {}
+        cut = dataclasses.replace(cfg, n_layers=1)
+        params = init_params(cut, dev, gen)
+        for kind in ("prefill", "train"):
+            shape = InputShape(kind, LM_PROMPT if kind == "prefill"
+                               else TRAIN_SEQ, LM_BATCH if kind == "prefill"
+                               else TRAIN_BATCH, kind)
+            batch = concrete_inputs(gen, cut, shape, device=dev)
+            if kind == "prefill":
+                step = make_prefill_step(cut, moe_path="dropless",
+                                         cache_seq=LM_PROMPT)
+                args = (params, batch)
+            else:
+                opt = single_model(sgd(1e-4))
+                step = make_train_step(cut, opt, moe_path="dropless")
+                args = (params, opt.init(params), batch)
+            with torch.no_grad() if kind == "prefill" else \
+                    contextlib.nullcontext():
+                step(*args)                      # warm: cuBLAS handles
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    step(*args)
+                    steps[kind] = "sync-free"
+                except RuntimeError as e:
+                    steps[kind] = f"syncs at {sync_frame(e)}"
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            del batch, args, step
+        del params
+        torch.cuda.empty_cache()
+        print(f"  [{CARD}] {arch} at its published widths (d_model "
+              f"{cfg.d_model}, {cfg.n_experts} experts of d_ff {cfg.d_ff}, "
+              f"top {cfg.moe_top_k}): one dropless FFN's forward and "
+              f"backward over {LM_BATCH} x {LM_PROMPT} tokens ran under "
+              f"set_sync_debug_mode('error') with no host sync (ragged_dot "
+              f"{counts['ragged_dot']}, ragged_dot_wgrad "
+              f"{counts['ragged_dot_wgrad']} launches); not gated: a whole "
+              f"dropless prefill step ({cut.n_layers} layers) "
+              f"{steps['prefill']}; a whole train step (SGD, the loss not "
+              f"read) {steps['train']}")
+        out[arch] = {"ffn_sync_free": True, "steps": steps,
+                     "launches": counts}
+    return out
+
+
+def ragged_phase(dev) -> dict:
+    t0 = time.perf_counter()
+    out = {"cases": {}}
+    for label, tokens, k, d, f, g in RAGGED_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            out["cases"][f"{label} {str(dtype).split('.')[-1]}"] = \
+                ragged_case(dev, label, tokens, k, d, f, g, dtype)
+    out["edges"] = ragged_edges(dev)
+    out["sync"] = dropless_sync(dev)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 26 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+# the dropless MoE path timed against another checkout (--moe-against):
+# phase 21's cuts (mixtral-8x7b 4 layers, deepseek-v2-236b 2) at the
+# published widths, bf16
+MOE_AGAINST_ITERS = 5
+
+
+def moe_times(src: str) -> dict:
+    """With the ``repro_torch`` of ``src``: each MoE architecture at its
+    published widths in bf16 through a dropless forward of phase 21's
+    batch 4 x prompt 64 at phase 21's depth cut (the prefill's work) and
+    a dropless train step at one layer (SGD, ~10 B a param; phase 22's
+    batch 8 x seq 128, the loss not read): host ms a call (median of
+    MOE_AGAINST_ITERS after two warm-ups) and one call's kernels and
+    device ms under the profiler."""
+    sys.path.insert(0, src)
+    from repro_torch.configs import InputShape, concrete_inputs, get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.optim import sgd, single_model
+    global CARD
+    CARD = smi("name,power.limit")
+    dev = torch.device("cuda")
+    out = {"src": src, "card": CARD}
+    for arch in MOE_CASES:
+        row = {}
+        for kind, n_layers in (("prefill", LM_DEPTH_CUT[arch]),
+                               ("train", 1)):
+            cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+            gen = torch.Generator(device=dev).manual_seed(30)
+            params = init_params(cfg, dev, gen)
+            if kind == "prefill":
+                prompts = torch.randint(0, cfg.vocab_size,
+                                        (LM_BATCH, LM_PROMPT), generator=gen,
+                                        dtype=torch.int32, device=dev)
+
+                def fn():
+                    with torch.no_grad():
+                        return forward(params, cfg, tokens=prompts,
+                                       moe_path="dropless")
+            else:
+                batch = concrete_inputs(gen, cfg, InputShape(
+                    "train", TRAIN_SEQ, TRAIN_BATCH, "train"), device=dev)
+                opt = single_model(sgd(1e-4))
+                state = opt.init(params)
+                step = make_train_step(cfg, opt, moe_path="dropless")
+
+                def fn():
+                    return step(params, state, batch)
+            for _ in range(2):
+                fn()
+            ms = sorted(timed(fn)[1] for _ in range(MOE_AGAINST_ITERS))
+            prof = device_breakdown(f"{arch} ({n_layers} layers) dropless "
+                                    f"{kind}", fn)
+            row[kind] = {"n_layers": n_layers, "ms": ms[len(ms) // 2],
+                         "ms_all": ms, "device_ms": prof["device_ms"],
+                         "kernels": prof.get("n_kernels"),
+                         "busy_share": prof.get("busy_share")}
+            del params, fn
+            torch.cuda.empty_cache()
+        out[arch] = row
+    return out
+
+
+def moe_against(other: Path) -> int:
+    """The dropless MoE path of another checkout (e.g. the parent commit,
+    unpacked with git archive) and of this one, one process each, in
+    turns: other, this, this, other. Prints the times; they also go to
+    ``chiprun_out/moe_against.json``."""
+    runs = []
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        res = subprocess.run([sys.executable, __file__, "--moe-times",
+                              str(tree / "src")], capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-5000:], file=sys.stderr)
+            return 1
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["label"] = label
+        runs.append(row)
+        for arch in MOE_CASES:
+            for kind in ("prefill", "train"):
+                r = row[arch][kind]
+                print(f"  [{row['card']}] {label:5s} {arch} "
+                      f"({r['n_layers']} layers) dropless {kind}: "
+                      f"{r['ms']:.2f} ms a call (median; all "
+                      f"{[round(x, 2) for x in r['ms_all']]}), one call "
+                      f"under the profiler {r['device_ms']} device ms in "
+                      f"{r['kernels']} kernels, busy {r['busy_share']}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "moe_against.json").write_text(json.dumps(runs, indent=2))
+    return 0
+
+
 SOURCES = {
     "pairwise_kl_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                           "src/repro/kernels/pairwise_kl.py:37"),
@@ -4087,6 +4649,13 @@ SOURCES = {
     # B4's wide route runs B1's 3xTF32 GEMM on the int8 splits
     "int8_pairwise_kl_pair": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
                               "src/repro/kernels/dequant_kl.py:39"),
+    # no Pallas kernel: jax.lax.ragged_dot, one XLA op of the reference's
+    # dropless MoE FFN (forward; the input gradient is the same kernel on
+    # rhs read transposed), and its weight gradient
+    "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
+                   "src/repro/models/ffn.py:151"),
+    "ragged_dot_wgrad": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
+                         "src/repro/models/ffn.py:151"),
 }
 # the kernels each federation must launch (the dense Eq. 5 entry is on
 # neither: both SQMD graphs carry their neighbor lists)
@@ -4137,6 +4706,11 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--b4-against":
         return b4_against(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 3 and sys.argv[1] == "--moe-times":
+        print(json.dumps(moe_times(sys.argv[2])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--moe-against":
+        return moe_against(Path(sys.argv[2]).resolve())
     if len(sys.argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -4163,6 +4737,7 @@ def main() -> int:
         print(f"  {name}: {info['seconds']:.1f} s; " + " | ".join(ptxas))
     print(f"  build wall time {time.perf_counter() - t0:.1f} s "
           f"({len(built)} of {len(build.SOURCES)} sources compiled)")
+    DROPLESS.install()
 
     print("[3] kernels against their plain versions")
     rows = kernel_phase(dev)
@@ -4288,6 +4863,19 @@ def main() -> int:
     print("[25] the LM dry run: the 1x1 trace against a real step, then "
           "production-mesh rows")
     lm_dryrun = dryrun_phase(dev)
+
+    print("[26] the dropless MoE's grouped product: the kernels against "
+          "their plain versions at the MoE widths, the edges, sync-free")
+    ragged = ragged_phase(dev)
+    # the grouped product's rows: mixtral-8x7b's prefill forward and its
+    # train batch's weight gradient, bf16; their launches from the MoE
+    # paths' runs, phases 21 (serving: forwards) and 22 (training)
+    for name, case, entry in (
+            ("ragged_dot", "mixtral-8x7b prefill bfloat16", "forward"),
+            ("ragged_dot_wgrad", "mixtral-8x7b train bfloat16", "wgrad")):
+        rows[name] = ragged["cases"][case][entry]
+        launches[name] = (moe_serving["launches"][name]
+                          + lm_training["launches"][name])
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -4312,7 +4900,7 @@ def main() -> int:
          "lm_serving": lm_serving, "moe_serving": moe_serving,
          "lm_training": lm_training, "sharding": sharding,
          "analysis": analysis, "lm_dryrun": lm_dryrun,
-         "wall_s": time.perf_counter() - t_start},
+         "ragged_dot": ragged, "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -40,6 +40,8 @@ PROBE_SLOTS = (5, 4096)
 PROBE_THIN = (1, 2, 3, 5, 9, 13, 16)
 PROBE_MANY = (1031, 100_003)
 PROBE_BLOCKS_PER_SM = (1, 8)
+# the grouped product's group counts: one, a few, deepseek-v2-236b's 160
+PROBE_GROUPS = (1, 7, 160)
 
 MAX_THREADS = 1024
 MAX_GRID_YZ = 65535
@@ -52,6 +54,7 @@ def probe_geometries(sms: int = H100_SMS) -> List[Tuple[str, Geometry]]:
     from repro_torch.kernels import neighbor_gather as ng
     from repro_torch.kernels import neighbor_mean as nm
     from repro_torch.kernels import pairwise_kl as pk
+    from repro_torch.kernels import ragged_dot as rd
     from repro_torch.kernels import soft_ce as sc
     u, m, r, c = PROBE_U, PROBE_M, PROBE_R, PROBE_C
     k = r * c
@@ -70,6 +73,17 @@ def probe_geometries(sms: int = H100_SMS) -> List[Tuple[str, Geometry]]:
     ]
     out += [(f"N={u},K={slots}", ng.launch_geometry(u, slots))
             for slots in PROBE_SLOTS]
+    # the grouped product: M rows by K = R*C into N = U columns (and the
+    # input gradient back, N into K), its weight gradient (G, K, N); fp32
+    # and bf16 rings
+    for g in PROBE_GROUPS:
+        for elem in (4, 2):
+            out += [(f"M={m},N={u},G={g},{elem}B",
+                     rd.launch_geometry(m, u, g, elem, False)),
+                    (f"M={m},N={k},G={g},{elem}B",
+                     rd.launch_geometry(m, k, g, elem, True)),
+                    (f"K={k},N={u},G={g},{elem}B",
+                     rd.wgrad_geometry(k, u, g, elem))]
     for t in PROBE_THIN:
         for many in PROBE_MANY:
             for per_sm in PROBE_BLOCKS_PER_SM:

@@ -133,6 +133,10 @@ class Federation:
     def device(self) -> torch.device:
         return self.server.repo_logp.device
 
+    def client_rows(self, cohort: Cohort) -> np.ndarray:
+        """The federation rows (client ids) of ``cohort``'s clients."""
+        return cohort.client_ids
+
 
 @dataclasses.dataclass
 class FederationConfig:
@@ -396,6 +400,11 @@ class FederationEngine:
                  which: str = "test") -> np.ndarray:
         return evaluate(self.fed, splits, which=which)
 
+    def add_callback(self, cb: RoundCallback) -> None:
+        """Call ``cb(engine, round, metrics)`` after each evaluation, after
+        the callbacks given at construction."""
+        self.callbacks.append(cb)
+
     def _record(self, splits: Sequence[ClientSplit], rnd: int
                 ) -> Dict[str, Any]:
         mask = np.asarray(self.schedule.joined(rnd, self.n_clients), bool)
@@ -471,6 +480,7 @@ class AsyncFederationEngine:
     n_clients = FederationEngine.n_clients
     last_graph = FederationEngine.last_graph
     evaluate = FederationEngine.evaluate
+    add_callback = FederationEngine.add_callback
     attach_snapshots = FederationEngine.attach_snapshots
     _publish = FederationEngine._publish
 

@@ -4,12 +4,13 @@ the paper's four protocols (§IV-A): ``sqmd``, ``fedmd``, ``ddist`` and
 from repro_torch.core.policies.base import (ServerPolicy, as_policy,
                                             get_policy, is_registered,
                                             register_policy,
-                                            registered_policies)
+                                            registered_policies,
+                                            unregister_policy)
 from repro_torch.core.policies.ddist import DDistPolicy
 from repro_torch.core.policies.fedmd import FedMDPolicy
 from repro_torch.core.policies.isgd import ISGDPolicy
 from repro_torch.core.policies.sqmd import SQMDPolicy
 
 __all__ = ["ServerPolicy", "as_policy", "get_policy", "is_registered",
-           "register_policy", "registered_policies", "SQMDPolicy",
-           "FedMDPolicy", "DDistPolicy", "ISGDPolicy"]
+           "register_policy", "registered_policies", "unregister_policy",
+           "SQMDPolicy", "FedMDPolicy", "DDistPolicy", "ISGDPolicy"]

@@ -37,6 +37,12 @@ def register_policy(name: str):
     return deco
 
 
+def unregister_policy(name: str) -> None:
+    """Remove a policy from the registry (a no-op for an unknown name);
+    a test's teardown after ``register_policy``."""
+    _REGISTRY.pop(name, None)
+
+
 def registered_policies() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 

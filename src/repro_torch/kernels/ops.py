@@ -1,4 +1,4 @@
-"""Public entry points of the server kernels, dispatched by the device of
+"""Public entry points of the hand kernels, dispatched by the device of
 the tensors they are given.
 
 A CPU tensor goes to the plain PyTorch version; a CUDA tensor goes to
@@ -16,6 +16,7 @@ from repro_torch.kernels import dequant_kl as _dk
 from repro_torch.kernels import neighbor_gather as _ng
 from repro_torch.kernels import neighbor_mean as _nm
 from repro_torch.kernels import pairwise_kl as _pk
+from repro_torch.kernels import ragged_dot as _rd
 from repro_torch.kernels import soft_ce as _sc
 
 # Above this many rows the square divergence rebuild streams row-block
@@ -31,7 +32,9 @@ _COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
              "neighbor_mean_split": (_nm, "split_launches"),
              "int8_pairwise_kl_split": (_dk, "split_launches"),
              "int8_pairwise_kl_thin": (_dk, "thin_launches"),
-             "int8_pairwise_kl_pair": (_dk, "launches")}
+             "int8_pairwise_kl_pair": (_dk, "launches"),
+             "ragged_dot": (_rd, "launches"),
+             "ragged_dot_wgrad": (_rd, "wgrad_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -104,3 +107,23 @@ def neighbor_gather(nbrs: torch.Tensor, w: torch.Tensor,
     indices, w (N,K) slot weights, probs (N,R,C) -> (N,R,C) fp32."""
     return _ng.neighbor_gather(nbrs.to(torch.int32).contiguous(),
                                w.float().contiguous(), probs.contiguous())
+
+
+def ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+               group_sizes: torch.Tensor,
+               transpose_rhs: bool = False) -> torch.Tensor:
+    """``jax.lax.ragged_dot``, the dropless MoE's grouped product: lhs
+    (M,K) with its rows sorted by group, rhs (G,K,N) (``transpose_rhs``:
+    (G,N,K), read transposed), group_sizes (G,) int32 -> (M,N) in lhs's
+    dtype, rows at or past sum(group_sizes) 0; differentiable in lhs and
+    rhs, with no host sync on the card."""
+    return _rd.ragged_dot(lhs.contiguous(), rhs.contiguous(),
+                          group_sizes.contiguous(), bool(transpose_rhs))
+
+
+def ragged_dot_wgrad(lhs: torch.Tensor, grad: torch.Tensor,
+                     group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``ragged_dot``: lhs (M,K), grad (M,N) ->
+    (G,K,N), each group's lhs rows transposed times its grad rows."""
+    return _rd.ragged_dot_wgrad(lhs.contiguous(), grad.contiguous(),
+                                group_sizes.contiguous())

@@ -1,0 +1,278 @@
+"""The dropless MoE's grouped product: the CUDA kernels
+``csrc/ragged_dot.cu`` (the counterpart of ``jax.lax.ragged_dot``, which
+the reference's ``moe_dropless_forward`` calls three times a layer; no
+Pallas kernel) and their plain PyTorch versions, as two custom ops:
+
+  * ``repro_torch::ragged_dot(lhs, rhs, group_sizes, transpose_rhs)``:
+    lhs (M,K) with its rows sorted by group, rhs (G,K,N) (``transpose_rhs``:
+    (G,N,K), read transposed in place), group_sizes (G,) int32 -> (M,N) in
+    lhs's dtype; rows at or past sum(group_sizes) come out 0;
+  * ``repro_torch::ragged_dot_wgrad(lhs, grad, group_sizes)`` -> (G,K,N),
+    each group's lhs rows transposed times its grad rows (0 for an empty
+    group).
+
+The ops carry their own autograd (the input gradient is the forward on
+rhs transposed, the weight gradient the second op), their fake shapes
+(so a step on fake tensors traces them) and ``FlopCounterMode``'s
+formula, 2 M K N a product, the reference's dense-equivalent count for
+``ragged-dot`` (``launch/graph_cost.py`` reads the same registry).
+
+A CPU tensor takes the plain version (one product a nonempty group, the
+group sizes read on the host); a CUDA tensor launches the kernel or
+raises. The kernels read the group sizes on the device only: nothing
+here synchronises with the host. ``launches`` and ``wgrad_launches``
+count kernel launches only.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import build
+from repro_torch.kernels.geometry import Cover, Geometry, blocks
+from repro_torch.kernels.ref import ragged_dot_ref as plain
+from repro_torch.kernels.ref import ragged_dot_wgrad_ref as plain_wgrad
+
+# csrc/<SOURCE>.cu and its C entry points with their device pointers and
+# ints (the stream comes last)
+SOURCE = "ragged_dot"
+ENTRY, WGRAD_ENTRY = "ragged_dot", "ragged_dot_wgrad"
+ENTRIES = {ENTRY: (4, 10), WGRAD_ENTRY: (4, 10)}
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_GROUPS = 1024  # the group tables live in a block's shared memory
+BM, BN, BK = 64, 128, 32   # csrc/ragged_dot.cu's output tile and stage
+THREADS = 256              # csrc/ragged_dot.cu's block
+STAGES = {2: 4, 4: 3}      # its forward's ring stages, by element size
+WGRAD_STAGES = 2           # its weight gradient's
+launches = 0
+wgrad_launches = 0
+
+
+def ring_bytes(elem: int, a: Tuple[int, int], b: Tuple[int, int],
+               stages: int) -> int:
+    """A ring of stages in dynamic shared memory: each stage an (R, C)
+    tile of A and of B, rows padded by 16 bytes, rounded to 128 bytes."""
+    v = 16 // elem
+    stage = (a[0] * (a[1] + v) + b[0] * (b[1] + v)) * elem
+    return stages * (-(-stage // 128) * 128)
+
+
+def launch_args(m: int, n: int, g: int, elem: int,
+                transpose_rhs: bool) -> Tuple[int, int, int, int]:
+    """The forward: cdiv(M, BM) + G row tiles (an upper bound on what the
+    groups and the zero tail take, whatever the sizes), cdiv(N, BN)
+    column tiles, the ring for ``elem``-byte operands (rhs stages (BN, BK)
+    read transposed, else (BK, BN))."""
+    b = (BN, BK) if transpose_rhs else (BK, BN)
+    return (blocks(m, BM) + g, blocks(n, BN), THREADS,
+            ring_bytes(elem, (BM, BK), b, STAGES[elem]))
+
+
+def launch_geometry(m: int, n: int, g: int, elem: int,
+                    transpose_rhs: bool) -> Geometry:
+    gx, gy, threads, smem = launch_args(m, n, g, elem, transpose_rhs)
+    return Geometry(ENTRY, (gx, gy, 1), (threads, 1, 1), smem,
+                    (Cover("rows (M), each group's last tile padded: "
+                           "M + G x BM", 0, BM, m + g * BM),
+                     Cover("columns (N)", 1, BN, n)))
+
+
+def wgrad_args(k: int, n: int, g: int,
+               elem: int) -> Tuple[int, int, int, int, int]:
+    """The weight gradient: (cdiv(N, BN), cdiv(K, BM), G) blocks, one
+    group's (K, N) tile each, the ring of (BK, BM) and (BK, BN) stages."""
+    return (blocks(n, BN), blocks(k, BM), g, THREADS,
+            ring_bytes(elem, (BK, BM), (BK, BN), WGRAD_STAGES))
+
+
+def wgrad_geometry(k: int, n: int, g: int, elem: int) -> Geometry:
+    gx, gy, gz, threads, smem = wgrad_args(k, n, g, elem)
+    return Geometry(WGRAD_ENTRY, (gx, gy, gz), (threads, 1, 1), smem,
+                    (Cover("columns (N)", 0, BN, n),
+                     Cover("rows of a group's weight (K)", 1, BM, k),
+                     Cover("groups (G)", 2, 1, g)))
+
+
+def _shapes(lhs, rhs, group_sizes, transpose_rhs: bool):
+    """(M, K, N, G) of a forward call; raises on shapes that disagree."""
+    if lhs.dim() != 2 or rhs.dim() != 3 or group_sizes.dim() != 1 \
+            or group_sizes.shape[0] != rhs.shape[0] \
+            or lhs.shape[1] != rhs.shape[2 if transpose_rhs else 1]:
+        raise ValueError(
+            f"expected lhs (M,K), rhs (G,{'N,K' if transpose_rhs else 'K,N'})"
+            f" and group_sizes (G,), got {tuple(lhs.shape)}, "
+            f"{tuple(rhs.shape)} and {tuple(group_sizes.shape)}")
+    if lhs.dtype != rhs.dtype:
+        raise TypeError(f"lhs and rhs must share a dtype, got {lhs.dtype} "
+                        f"and {rhs.dtype}")
+    if group_sizes.is_floating_point() or group_sizes.is_complex():
+        raise TypeError(f"group_sizes must be integers, got "
+                        f"{group_sizes.dtype}")
+    m, k = lhs.shape
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    return m, k, n, rhs.shape[0]
+
+
+def _check_card(what: str, *tensors) -> None:
+    """The kernels' terms: one CUDA device, fp32 or bf16 operands, int32
+    group sizes (the last tensor), contiguous, at most MAX_GROUPS."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: the operands must be on one CUDA device, "
+                         f"got {sorted(map(str, devices))}")
+    *operands, sizes = tensors
+    if operands[0].dtype not in DTYPES:
+        raise TypeError(f"{what}: operands must be float32 or bfloat16, got "
+                        f"{operands[0].dtype}")
+    if sizes.dtype != torch.int32:
+        raise TypeError(f"{what}: group_sizes must be int32 on the card, got "
+                        f"{sizes.dtype}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: the operands must be contiguous")
+    if sizes.shape[0] > MAX_GROUPS:
+        raise ValueError(f"{what}: the kernel takes at most {MAX_GROUPS} "
+                         f"groups, got {sizes.shape[0]}")
+
+
+# ---------------------------------------------------------------------------
+# the forward op
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::ragged_dot", mutates_args=(),
+                         device_types="cpu")
+def ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+               group_sizes: torch.Tensor,
+               transpose_rhs: bool) -> torch.Tensor:
+    """``jax.lax.ragged_dot(lhs, rhs, group_sizes)`` (``transpose_rhs``:
+    against each group's rhs transposed), differentiable in lhs and rhs;
+    on the CPU the plain version."""
+    _shapes(lhs, rhs, group_sizes, transpose_rhs)
+    return plain(lhs, rhs, group_sizes, transpose_rhs)
+
+
+@ragged_dot.register_kernel("cuda")
+def _ragged_dot_cuda(lhs, rhs, group_sizes, transpose_rhs):
+    m, k, n, g = _shapes(lhs, rhs, group_sizes, transpose_rhs)
+    _check_card("ragged_dot", lhs, rhs, group_sizes)
+    out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
+    if m == 0 or n == 0:
+        return out
+    if g == 0:
+        return out.zero_()
+    global launches
+    fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
+    code = fn(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+              out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
+              int(transpose_rhs),
+              *launch_args(m, n, g, lhs.element_size(), transpose_rhs),
+              torch.cuda.current_stream(lhs.device).cuda_stream)
+    build.check(ENTRY, code)
+    launches += 1
+    return out
+
+
+@ragged_dot.register_fake
+def _ragged_dot_fake(lhs, rhs, group_sizes, transpose_rhs):
+    m, _, n, _ = _shapes(lhs, rhs, group_sizes, transpose_rhs)
+    return lhs.new_empty((m, n))
+
+
+# ---------------------------------------------------------------------------
+# the weight-gradient op
+# ---------------------------------------------------------------------------
+
+def _wgrad_shapes(lhs, grad, group_sizes):
+    """(M, K, N, G) of a weight-gradient call; raises on shapes that
+    disagree."""
+    if lhs.dim() != 2 or grad.dim() != 2 or group_sizes.dim() != 1 \
+            or lhs.shape[0] != grad.shape[0]:
+        raise ValueError(f"expected lhs (M,K), grad (M,N) and group_sizes "
+                         f"(G,), got {tuple(lhs.shape)}, {tuple(grad.shape)} "
+                         f"and {tuple(group_sizes.shape)}")
+    if lhs.dtype != grad.dtype:
+        raise TypeError(f"lhs and grad must share a dtype, got {lhs.dtype} "
+                        f"and {grad.dtype}")
+    return lhs.shape[0], lhs.shape[1], grad.shape[1], group_sizes.shape[0]
+
+
+@torch.library.custom_op("repro_torch::ragged_dot_wgrad", mutates_args=(),
+                         device_types="cpu")
+def ragged_dot_wgrad(lhs: torch.Tensor, grad: torch.Tensor,
+                     group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``ragged_dot``: lhs (M,K), grad (M,N) ->
+    (G,K,N), group g's lhs rows transposed times its grad rows; on the
+    CPU the plain version."""
+    _wgrad_shapes(lhs, grad, group_sizes)
+    return plain_wgrad(lhs, grad, group_sizes)
+
+
+@ragged_dot_wgrad.register_kernel("cuda")
+def _ragged_dot_wgrad_cuda(lhs, grad, group_sizes):
+    m, k, n, g = _wgrad_shapes(lhs, grad, group_sizes)
+    _check_card("ragged_dot_wgrad", lhs, grad, group_sizes)
+    out = torch.empty((g, k, n), dtype=lhs.dtype, device=lhs.device)
+    if out.numel() == 0:
+        return out
+    global wgrad_launches
+    fn = build.entry(SOURCE, WGRAD_ENTRY, *ENTRIES[WGRAD_ENTRY])
+    code = fn(lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
+              out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
+              *wgrad_args(k, n, g, lhs.element_size()),
+              torch.cuda.current_stream(lhs.device).cuda_stream)
+    build.check(WGRAD_ENTRY, code)
+    wgrad_launches += 1
+    return out
+
+
+@ragged_dot_wgrad.register_fake
+def _ragged_dot_wgrad_fake(lhs, grad, group_sizes):
+    _, k, n, g = _wgrad_shapes(lhs, grad, group_sizes)
+    return lhs.new_empty((g, k, n))
+
+
+# ---------------------------------------------------------------------------
+# autograd and FLOPs
+# ---------------------------------------------------------------------------
+
+def _setup_context(ctx, inputs, output):
+    lhs, rhs, group_sizes, transpose_rhs = inputs
+    ctx.save_for_backward(lhs, rhs, group_sizes)
+    ctx.transpose_rhs = transpose_rhs
+
+
+def _backward(ctx, grad):
+    """d_lhs is the forward of grad on rhs read the other way round; the
+    weight gradient sums each group's rows (grad^T lhs when rhs was read
+    transposed). Rows past the groups get 0, empty groups 0."""
+    lhs, rhs, group_sizes = ctx.saved_tensors
+    grad = grad.contiguous()
+    d_lhs = d_rhs = None
+    if ctx.needs_input_grad[0]:
+        d_lhs = ragged_dot(grad, rhs, group_sizes, not ctx.transpose_rhs)
+    if ctx.needs_input_grad[1]:
+        d_rhs = (ragged_dot_wgrad(grad, lhs, group_sizes)
+                 if ctx.transpose_rhs
+                 else ragged_dot_wgrad(lhs, grad, group_sizes))
+    return d_lhs, d_rhs, None, None
+
+
+ragged_dot.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula(torch.ops.repro_torch.ragged_dot)
+def _ragged_dot_flops(lhs_shape, rhs_shape, sizes_shape, *args,
+                      out_shape=None, **kwargs) -> int:
+    """2 M K N, as if every row met every group's weights once: the
+    reference's ``hlo_cost`` count of ``ragged-dot``."""
+    m, k = lhs_shape
+    return 2 * m * k * out_shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.ragged_dot_wgrad)
+def _ragged_dot_wgrad_flops(lhs_shape, grad_shape, sizes_shape, *args,
+                            out_shape=None, **kwargs) -> int:
+    """2 M K N: every row's outer product, summed into its group."""
+    m, k = lhs_shape
+    return 2 * m * k * grad_shape[1]

@@ -167,3 +167,42 @@ def neighbor_gather_ref(nbrs: torch.Tensor, w: torch.Tensor,
     for j in range(idx.shape[1]):
         t += w[:, j:j + 1].float() * s[idx[:, j]]
     return t.reshape(n, r, c)
+
+
+def ragged_dot_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+                   group_sizes: torch.Tensor,
+                   transpose_rhs: bool = False) -> torch.Tensor:
+    """``jax.lax.ragged_dot``: lhs (M,K) with its rows sorted by group,
+    rhs (G,K,N) (``transpose_rhs``: (G,N,K), each group's read as its
+    transpose), group_sizes (G,) -> (M,N) in lhs's dtype. Group g's rows
+    go through rhs[g] in one product; rows at or past sum(group_sizes)
+    come out 0. The group sizes are read on the host."""
+    m = lhs.shape[0]
+    n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
+    outs, start = [], 0
+    for g, size in enumerate(group_sizes.tolist()):
+        size = max(0, min(size, m - start))
+        if size:
+            w = rhs[g].transpose(0, 1) if transpose_rhs else rhs[g]
+            outs.append(lhs[start:start + size] @ w)
+            start += size
+    if start < m or not outs:
+        outs.append(lhs.new_zeros((m - start, n)))
+    return torch.cat(outs)
+
+
+def ragged_dot_wgrad_ref(lhs: torch.Tensor, grad: torch.Tensor,
+                         group_sizes: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of ``ragged_dot_ref``: lhs (M,K), grad (M,N),
+    group_sizes (G,) -> (G,K,N) in lhs's dtype, group g's lhs rows
+    transposed times its grad rows (0 for an empty group); rows at or past
+    sum(group_sizes) take no part."""
+    m, k = lhs.shape
+    out = lhs.new_zeros((group_sizes.shape[0], k, grad.shape[1]))
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        size = max(0, min(size, m - start))
+        if size:
+            out[g] = lhs[start:start + size].t().mm(grad[start:start + size])
+            start += size
+    return out

@@ -155,11 +155,12 @@ class Partitioner:
       combined with all-reduces (distributed flash-decode). DTensor
       itself cannot take the GQA group view of a head-sharded query (an
       uneven unflatten) nor the strided shards einsum's reshapes leave.
-    * ``ffn``, ``experts``, ``decode_experts``: the dense FFN, GShard's
-      expert products and decode's chosen experts on each rank's columns
-      or experts (decode: the other ranks' choices weighted 0), a Partial
-      sum over "model" (Megatron's column/row split; einsum's backward
-      on DTensor reaches the same strided shards).
+    * ``ffn``, ``experts``, ``decode_experts``, ``dropless_experts``: the
+      dense FFN, GShard's expert products, decode's chosen experts and the
+      dropless sort and grouped products on each rank's columns or
+      experts (decode and dropless: the other ranks' choices weighted 0),
+      a Partial sum over "model" (Megatron's column/row split; einsum's
+      backward on DTensor reaches the same strided shards).
     * ``channels``: a depthwise conv on each rank's channels, its filter
       cut to them; ``local``: a cache packed from each rank's keys;
       ``cache_write``: a decode cache written on the local shard, only by
@@ -407,6 +408,34 @@ class Partitioner:
         return self._wrap(yl, self.layout(x, partial_model=sharded),
                           tuple(x.shape))
 
+    def dropless_experts(self, fn, x, weights, idx, *experts):
+        """The dropless experts on this rank's batch shard: its sort and
+        the three grouped products on its own experts or expert columns,
+        a Partial sum over "model" when the experts are sharded over it.
+        On this rank's experts (expert-parallel), the other ranks' choices
+        take the index past its last expert, so they sort last, past the
+        groups, and the products do no work on them; their weights are 0.
+        The FLOPs are the products' over every local row, as the
+        reference's ``hlo_cost`` counts ``ragged-dot``."""
+        from torch.distributed.tensor import DTensor, Shard
+        if not isinstance(x, DTensor):
+            return fn(x, weights, idx, *experts)
+        wl, wpl, sharded = self._weights(experts, x)
+        m = self.names.index("model") if "model" in self.names else -1
+        grad = self.layout(x, partial_model=sharded)
+        xl = self._local(x, self.layout(x), grad)
+        rl = self._local(weights, self.layout(weights),
+                         self.layout(weights, partial_model=sharded))
+        il = self._local(idx, self.layout(idx), None)
+        if sharded and isinstance(wpl[0][m], Shard) and wpl[0][m].dim == 0:
+            n = wl[0].shape[0]                   # this rank's experts
+            lo = self.mesh.get_local_rank("model") * n
+            inside = (il >= lo) & (il < lo + n)
+            rl = rl * inside.to(rl.dtype)
+            il = torch.where(inside, il - lo, torch.full_like(il, n))
+        yl = fn(xl, rl, il, *wl)
+        return self._wrap(yl, grad, tuple(x.shape))
+
     def channels(self, fn, u, prior, *weights):
         """A per-channel op on this rank's shard of u, the weights' channel
         dim (the last) cut to the same channels."""
@@ -560,11 +589,6 @@ def trace_combo(arch: str, shape_name: str, multi_pod: bool,
     if reason:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_tag,
                 "status": "SKIP", "reason": reason}
-    if moe_path == "dropless" and cfg.is_moe and shape.kind != "decode":
-        raise ValueError(
-            "the dropless MoE path reads its group sizes on the host "
-            "(.tolist()), which a step on fake tensors cannot; trace "
-            "moe_path='gshard'")
     kw = dict(moe_path=moe_path, remat=remat, donate=donate, policy=policy,
               microbatches=microbatches, device=device)
     if mesh is not None:

@@ -319,6 +319,15 @@ def decode_expert_core(fn, x, weights, idx, *experts):
     return _PARTITIONER.decode_experts(fn, x, weights, idx, *experts)
 
 
+def dropless_expert_core(fn, x, weights, idx, *experts):
+    """``fn(x, weights, idx, *experts)``, the dropless experts' sort and
+    grouped products; a partitioner runs it on each rank's batch shard
+    and its experts or expert columns."""
+    if _PARTITIONER is None:
+        return fn(x, weights, idx, *experts)
+    return _PARTITIONER.dropless_experts(fn, x, weights, idx, *experts)
+
+
 def ssd_core(fn, xh, dt, a, b, c, chunk: int):
     """``fn(xh, dt, a, b, c, chunk)``, Mamba-2's chunked scan; a
     partitioner runs it on each rank's heads."""

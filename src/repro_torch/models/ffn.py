@@ -8,7 +8,9 @@ Three paths, the reference's:
   * ``moe_gshard_forward``: dispatch and combine products with a
     per-row expert capacity; the choices past it are dropped;
   * ``moe_dropless_forward``: the choices sorted by expert (a stable
-    sort), one product per expert over its rows;
+    sort), then three grouped products over them (``kernels.ops.
+    ragged_dot``, ``jax.lax.ragged_dot``'s counterpart), group sizes
+    counted on the device;
   * ``moe_decode``: one token per row, the k chosen experts' weights
     gathered per row.
 
@@ -21,8 +23,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from repro_torch.models.common import (Init, ModelConfig, Params, dense_init,
-                                       decode_expert_core, expert_core,
+                                       decode_expert_core,
+                                       dropless_expert_core, expert_core,
                                        ffn_core, swiglu)
 
 MOE_CAPACITY_FACTOR = 1.25
@@ -136,36 +140,29 @@ def moe_gshard_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return y, aux
 
 
-def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
-    """x (B,S,D) -> (y, aux), no choice dropped. The (token, choice)
-    rows are sorted by expert (stable), each expert's rows go through its
-    FFN in one product per weight (the group sizes are copied to the
-    host), and each token's k weighted outputs are summed in ``x``'s
-    dtype in the sorted order, ascending expert, as the reference's
-    scatter-add sums them: deterministic, where ``index_add_`` on the
-    card is not."""
+def _dropless_experts(x, weights, idx, w_gate, w_up, w_down):
+    """x (B,S,D), the routing weights and indices (B,S,k) -> y (B,S,D)
+    in x's dtype. The (token, choice) rows are sorted by expert (stable)
+    and go through the experts' FFN in three grouped products
+    (``ragged_dot``), the group sizes counted on the device; each token's
+    k weighted outputs are summed in x's dtype in the sorted order,
+    ascending expert, as the reference's scatter-add sums them:
+    deterministic, where ``index_add_`` on the card is not. An index equal
+    to the experts' count (another rank's expert, weighted 0) sorts last,
+    past the groups: the products give its row 0."""
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.moe_top_k
+    k, e = idx.shape[-1], w_gate.shape[0]
     t = b * s
     xf = x.reshape(t, d)
-    weights, idx, aux = route(p, cfg, x)
     ef = idx.reshape(t * k)
     order = torch.argsort(ef, stable=True)
     xs = xf[order // k]                                     # (t*k, D)
-    # one unbind a weight: its backward stacks the experts' grads once,
-    # where indexing expert i would backpropagate a zero-filled grad of
-    # all E experts' weights for each i; the experts' row blocks are
-    # contiguous and in order, so their outputs concatenate into ys
-    w_gate, w_up, w_down = (p[w].unbind(0)
-                            for w in ("w_gate", "w_up", "w_down"))
-    outs, start = [], 0
-    for i, n in enumerate(torch.bincount(ef, minlength=e).tolist()):
-        if n:
-            rows = xs[start:start + n]
-            h = swiglu(rows @ w_gate[i], rows @ w_up[i])
-            outs.append(h @ w_down[i])
-            start += n
-    ys = torch.cat(outs)
+    sizes = torch.zeros(e + 1, dtype=torch.int32, device=x.device)
+    sizes = sizes.scatter_add_(0, ef, torch.ones_like(ef, dtype=torch.int32))
+    sizes = sizes[:e]
+    h = swiglu(ops.ragged_dot(xs, w_gate, sizes),
+               ops.ragged_dot(xs, w_up, sizes))
+    ys = ops.ragged_dot(h, w_down, sizes)                   # (t*k, D)
     yw = ys * weights.reshape(t * k)[order][:, None].to(ys.dtype)
     per_choice = torch.empty_like(yw)
     per_choice[order] = yw                                  # (t*k, D)
@@ -175,7 +172,16 @@ def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
     y = parts[:, 0]
     for j in range(1, k):
         y = y + parts[:, j]
-    y = y.reshape(b, s, d).to(x.dtype)
+    return y.reshape(b, s, d).to(x.dtype)
+
+
+def moe_dropless_forward(p: Params, cfg: ModelConfig, x: torch.Tensor):
+    """x (B,S,D) -> (y, aux), no choice dropped: the experts' products
+    over the choices sorted by expert (``_dropless_experts``), with no
+    host sync."""
+    weights, idx, aux = route(p, cfg, x)
+    y = dropless_expert_core(_dropless_experts, x, weights, idx,
+                             p["w_gate"], p["w_up"], p["w_down"])
     if "shared" in p:
         y = y + dense_ffn(p["shared"], x)
     return y, aux

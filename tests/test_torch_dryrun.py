@@ -16,7 +16,10 @@
   * on a fake (2,4) mesh (2 rows, one a data rank), every product of the
     prefill step is 1/4 (tensor-parallel) or 1 (replicated attention) of
     its per-device FLOPs in the 1-row step on a 1x1 mesh;
-  * ``trace_combo(mesh=)`` returns a row with the reference's keys.
+  * ``trace_combo(mesh=)`` returns a row with the reference's keys; the
+    dropless MoE path traces on the production mesh;
+  * the reduced mixtral-8x7b's dropless train step on a 1x1 host mesh:
+    per-device FLOPs equal ``FlopCounterMode`` of a real CPU step.
 
 Every test that starts a process group ends it (the autouse fixture also
 destroys any left behind).
@@ -260,6 +263,32 @@ def test_host_mesh_flops_equal_plain_and_reference(kind):
     assert abs(row["hlo_flops_per_dev"] - ref) <= 0.02 * ref
 
 
+def test_host_mesh_dropless_moe_flops_equal_a_real_step():
+    """The reduced mixtral-8x7b's train step on the dropless path traced on
+    a 1x1 host mesh reads the FLOPs ``FlopCounterMode`` reads over the
+    same step run on the CPU: the grouped products forward and backward
+    at 2 M K N each, as the reference's ``hlo_cost`` counts ragged-dot."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.models.transformer import init_params
+    cfg = TC.get_reduced("mixtral-8x7b")
+    shape = TC.InputShape("t", 16, 2, "train")
+    with fake_process_group(1):
+        row = dryrun.trace_step(cfg, shape, make_host_mesh(device="cpu"),
+                                moe_path="dropless", remat=False,
+                                device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, "cpu", gen)
+    batch = TC.concrete_inputs(gen, cfg, shape, device="cpu")
+    opt = single_model(adam(1e-4))
+    step = make_train_step(cfg, opt, moe_path="dropless", remat=False)
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt.init(params), batch)
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    assert counts["repro_torch.ragged_dot"] > 0
+    assert counts["repro_torch.ragged_dot_wgrad"] > 0
+    assert row["hlo_flops_per_dev"] == fc.get_total_flops()
+
+
 def test_tensor_parallel_products_are_a_quarter():
     from torch.distributed.device_mesh import init_device_mesh
     cfg = TC.get_reduced("qwen2-0.5b")
@@ -284,7 +313,7 @@ def test_tensor_parallel_products_are_a_quarter():
     assert ffn and set(ffn) == {0.25}           # the head, the largest
 
 
-def test_trace_combo_row_keys():
+def test_trace_combo_row_keys(monkeypatch):
     ref_keys = {"arch", "shape", "mesh", "chips", "compute_s", "memory_s",
                 "collective_s", "dominant", "hlo_flops_per_dev",
                 "hlo_bytes_per_dev", "coll_bytes_per_dev", "model_flops",
@@ -306,6 +335,11 @@ def test_trace_combo_row_keys():
     assert mem["output_bytes"] - mem["alias_bytes"] == 262144 * 4
     skip = dryrun.trace_combo("qwen2-0.5b", "long_500k", False, device="cpu")
     assert skip["status"] == "SKIP"
-    with pytest.raises(ValueError, match="dropless"):
-        dryrun.trace_combo("mixtral-8x7b", "train_4k", False,
-                           moe_path="dropless", device="cpu")
+    # the dropless MoE path traces (its group sizes never reach the host):
+    # mixtral's reduced widths on the production 16x16 mesh of fake ranks,
+    # its experts' columns over "model"
+    monkeypatch.setattr(dryrun, "get_config", TC.get_reduced)
+    row = dryrun.trace_combo("mixtral-8x7b", "prefill_32k", False,
+                             moe_path="dropless", device="cpu")
+    assert row["status"] == "OK" and row["chips"] == 256
+    assert row["hlo_flops_per_dev"] > 0 and row["coll_bytes_per_dev"] > 0

@@ -598,13 +598,17 @@ def test_cpu_calls_count_no_launches():
     q, s, z = _int8_wire(_messengers(5, 6, 3, 7))
     ops.int8_pairwise_kl(q, s, z)
     ops.int8_pairwise_kl_pair(q[:1], s[:1], z[:1], q, s, z)
+    sizes = torch.tensor([2, 0, 3], dtype=torch.int32)
+    ops.ragged_dot(t[:, 0], t[:3, :3].transpose(1, 2), sizes)
+    ops.ragged_dot_wgrad(t[:, 0], t[:, 1], sizes)
     assert ops.launch_counts() == {"pairwise_kl_split": 0,
                                    "pairwise_kl_pair": 0, "soft_ce": 0,
                                    "neighbor_gather": 0, "neighbor_mean": 0,
                                    "neighbor_mean_split": 0,
                                    "int8_pairwise_kl_split": 0,
                                    "int8_pairwise_kl_thin": 0,
-                                   "int8_pairwise_kl_pair": 0}
+                                   "int8_pairwise_kl_pair": 0,
+                                   "ragged_dot": 0, "ragged_dot_wgrad": 0}
 
 
 @pytest.mark.parametrize("call", ["pairwise_kl", "soft_ce", "neighbor_mean",
@@ -769,7 +773,8 @@ def test_cuda_kernels_match_plain(hopper, shape, dtype):
                                    "neighbor_mean_split": 2,
                                    "int8_pairwise_kl_split": 0,
                                    "int8_pairwise_kl_thin": 0,
-                                   "int8_pairwise_kl_pair": 0}
+                                   "int8_pairwise_kl_pair": 0,
+                                   "ragged_dot": 0, "ragged_dot_wgrad": 0}
 
 
 @pytest.mark.gpu

@@ -1,0 +1,210 @@
+"""The port's grouped product (``kernels/ragged_dot.py``) against
+``jax.lax.ragged_dot``, on the CPU (the plain version; the CUDA kernels
+run in ``tests/test_torch_gpu_ragged_dot.py`` and ``chip_smoke.py``):
+
+  * the forward and the vjp (both cotangents) in fp32 and bf16, with empty
+    groups, rows past the groups' sum and a single group;
+  * the custom ops' fake shapes (a step on fake tensors traces them), and
+    their FLOPs inside ``FlopCounterMode``: 2 M K N a product, the
+    reference's ``hlo_cost`` count;
+  * the op's autograd against autograd through the plain per-group loop
+    the dropless FFN ran before, bit for bit;
+  * the dropless FFN's forward and backward on fake tensors, which cannot
+    be read on the host: no host sync is left on the path.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ragged_dot as rd
+
+M, K, N = 23, 12, 10
+# group sizes: two empty groups and 3 rows past the sum; all rows in one
+# group; a single group covering fewer rows than M
+CASES = {"empty_and_past": [5, 0, 9, 0, 6], "one_of_many": [0, 0, 23, 0],
+         "single": [17]}
+# bf16: the two packages round the same fp32 sums once; a sum that lands
+# near a rounding boundary may round the other way (one bf16 ulp, 2^-8
+# of its magnitude) where the summation order differs
+BF16_ULP = 2.0 ** -8
+
+
+def _inputs(sizes, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    g = len(sizes)
+    lhs = rng.normal(size=(M, K)).astype(np.float32)
+    rhs = rng.normal(size=(g, K, N)).astype(np.float32)
+    dout = rng.normal(size=(M, N)).astype(np.float32)
+    if dtype == "bfloat16":       # values exact in bf16, both sides
+        lhs, rhs, dout = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                          for a in (lhs, rhs, dout))
+    return lhs, rhs, np.asarray(sizes, np.int32), dout
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(got, want, dtype, scale):
+    got = got.float().numpy().astype(np.float64)
+    want = np.asarray(want, np.float64)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+    else:
+        np.testing.assert_allclose(got, want, rtol=BF16_ULP,
+                                   atol=BF16_ULP * 1e-2 * scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ragged_dot_matches_jax_forward_and_vjp(case, dtype):
+    lhs, rhs, sizes, dout = _inputs(CASES[case], dtype)
+    jdt = getattr(jnp, dtype)
+    out, vjp = jax.vjp(
+        lambda a, b: jax.lax.ragged_dot(a, b, jnp.asarray(sizes)),
+        jnp.asarray(lhs, jdt), jnp.asarray(rhs, jdt))
+    d_lhs, d_rhs = vjp(jnp.asarray(dout, jdt))
+    tl = _torch(lhs, dtype).requires_grad_()
+    tr = _torch(rhs, dtype).requires_grad_()
+    got = ops.ragged_dot(tl, tr, torch.from_numpy(sizes))
+    got.backward(_torch(dout, dtype))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (M, N)
+    assert tl.grad.dtype == got.dtype and tr.grad.dtype == got.dtype
+    used = int(min(sizes.sum(), M))
+    # rows past the groups: 0 out and 0 gradient, in both packages
+    assert not got[used:].any() and not tl.grad[used:].any()
+    assert not np.asarray(out, np.float32)[used:].any()
+    scale = float(np.sqrt(K))         # the sums' typical magnitude
+    _close(got.detach(), out.astype(jnp.float32), dtype, scale)
+    _close(tl.grad, d_lhs.astype(jnp.float32), dtype, scale)
+    _close(tr.grad, d_rhs.astype(jnp.float32), dtype, float(np.sqrt(M)))
+    for g, size in enumerate(sizes):        # an empty group's grad is 0
+        if size == 0:
+            assert not tr.grad[g].any()
+
+
+def test_wgrad_entry_and_transposed_forward_match_jax():
+    lhs, rhs, sizes, dout = _inputs(CASES["empty_and_past"], "float32", 1)
+    _, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, sizes),
+                     jnp.asarray(lhs), jnp.asarray(rhs))
+    d_lhs, d_rhs = vjp(jnp.asarray(dout))
+    ts = torch.from_numpy(sizes)
+    wgrad = ops.ragged_dot_wgrad(torch.from_numpy(lhs),
+                                 torch.from_numpy(dout), ts)
+    np.testing.assert_allclose(wgrad.numpy(), d_rhs, rtol=0,
+                               atol=1e-5 * np.sqrt(M))
+    # the input gradient reads rhs (G,K,N) transposed in place
+    d_in = ops.ragged_dot(torch.from_numpy(dout), torch.from_numpy(rhs), ts,
+                          transpose_rhs=True)
+    np.testing.assert_allclose(d_in.numpy(), d_lhs, rtol=0,
+                               atol=1e-5 * np.sqrt(N))
+
+
+def test_fake_shapes_and_flop_formula():
+    g = 5
+    with FakeTensorMode():
+        lhs = torch.empty(M, K, dtype=torch.bfloat16)
+        rhs = torch.empty(g, K, N, dtype=torch.bfloat16)
+        sizes = torch.empty(g, dtype=torch.int32)
+        out = ops.ragged_dot(lhs, rhs, sizes)
+        assert out.shape == (M, N) and out.dtype == torch.bfloat16
+        back = ops.ragged_dot(out, rhs, sizes, transpose_rhs=True)
+        assert back.shape == (M, K)
+        wg = ops.ragged_dot_wgrad(lhs, out, sizes)
+        assert wg.shape == (g, K, N) and wg.dtype == torch.bfloat16
+        with pytest.raises(ValueError):
+            ops.ragged_dot(lhs, rhs[:, :, :3].transpose(1, 2), sizes)
+    lhs, rhs, sizes, dout = _inputs(CASES["empty_and_past"], "float32")
+    tl = torch.from_numpy(lhs).requires_grad_()
+    tr = torch.from_numpy(rhs).requires_grad_()
+    with FlopCounterMode(display=False) as fc:
+        ops.ragged_dot(tl, tr, torch.from_numpy(sizes)).backward(
+            torch.from_numpy(dout))
+    counts = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    # forward, input gradient, weight gradient: 2 M K N each
+    assert counts == {"repro_torch.ragged_dot": 2 * (2 * M * K * N),
+                      "repro_torch.ragged_dot_wgrad": 2 * M * K * N}
+
+
+def _loop(lhs, w_unbound, sizes):
+    """The dropless FFN's former per-group loop: one product a nonempty
+    group, concatenated (every row in some group)."""
+    outs, start = [], 0
+    for i, n in enumerate(sizes):
+        if n:
+            outs.append(lhs[start:start + n] @ w_unbound[i])
+            start += n
+    return torch.cat(outs)
+
+
+def test_autograd_equals_the_plain_loops_bit_for_bit():
+    sizes = [7, 0, 11, 5]                  # every row in a group, as there
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(sum(sizes), K)).astype(np.float32)
+    w = rng.normal(size=(len(sizes), K, N)).astype(np.float32)
+    dy = torch.from_numpy(rng.normal(size=(sum(sizes), N)).astype(np.float32))
+    runs = []
+    for op in (True, False):
+        tx = torch.from_numpy(x).requires_grad_()
+        tw = torch.from_numpy(w).requires_grad_()
+        y = ops.ragged_dot(tx, tw, torch.tensor(sizes, dtype=torch.int32)) \
+            if op else _loop(tx, tw.unbind(0), sizes)
+        y.backward(dy)
+        runs.append((y.detach(), tx.grad, tw.grad))
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
+def test_dropless_ffn_runs_on_fake_tensors():
+    """The dropless FFN's forward and backward at a reduced config on fake
+    tensors: a ``.tolist()`` or ``.item()`` on the path would raise."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.ffn import init_moe, moe_dropless_forward
+    from repro_torch.models.common import Init
+    cfg = get_reduced("deepseek-v2-236b")
+    with FakeTensorMode():
+        p = init_moe(Init(None, torch.device("cpu")), cfg)
+        for v in p.values():
+            if isinstance(v, torch.Tensor):
+                v.requires_grad_()
+        x = torch.randn(2, 5, cfg.d_model, dtype=cfg.param_dtype,
+                        requires_grad=True)
+        y, aux = moe_dropless_forward(p, cfg, x)
+        (y.float().sum() + aux).backward()
+        assert y.shape == x.shape and x.grad.shape == x.shape
+        assert p["w_down"].grad.shape == p["w_down"].shape
+
+
+def test_kernel_geometry_and_card_checks():
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ragged_dot.cu").read_text()
+
+    def constexpr(name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);",
+                             src).group(1))
+    # the entry points refuse any launch but launch_args' own
+    assert (constexpr("BM"), constexpr("BN"), constexpr("BK"),
+            constexpr("THREADS"), constexpr("MAX_GROUPS")) == (
+        rd.BM, rd.BN, rd.BK, rd.THREADS, rd.MAX_GROUPS)
+    stages = re.findall(r"struct Ring<(\w+)> \{\s*static constexpr int "
+                        r"STAGES = (\d+);", src)
+    assert {2 if t == "__nv_bfloat16" else 4: int(n)
+            for t, n in stages} == rd.STAGES
+    assert constexpr("WGRAD_STAGES") == rd.WGRAD_STAGES
+    # the forward's grid: one row tile more a group than cdiv(M, BM); a
+    # bf16 ring of 4 stages, each a 64 x (32 + 8) lhs tile and a
+    # 32 x (128 + 8) rhs tile (13824 bytes)
+    gx, gy, threads, smem = rd.launch_args(257, 131, 160, 2, False)
+    assert (gx, gy, threads, smem) == (5 + 160, 2, rd.THREADS, 4 * 13824)
+    assert rd.wgrad_args(21, 131, 7, 4)[:4] == (2, 1, 7, rd.THREADS)
+    lhs, rhs, sizes, _ = _inputs(CASES["single"], "float32")
+    # mixed dtypes are refused before any device dispatch
+    with pytest.raises(TypeError):
+        ops.ragged_dot(torch.from_numpy(lhs).double(), torch.from_numpy(rhs),
+                       torch.from_numpy(sizes))
