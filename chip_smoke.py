@@ -170,7 +170,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     and the GShard forward's logits and aux loss, card against CPU; every
     dropless MoE layer forward on the card launched ``ragged_dot`` 3
     times and no other kernel of the port launched (the dropless FFN
-    wrapped to count its calls, ``DroplessCalls``);
+    wrapped to count its calls, ``DroplessCalls``); the bf16 forwards at
+    the published widths took ``ragged_dot``'s Hopper route (its counter
+    read);
 22. LM training (``repro_torch.launch.train``, ``make_train_step``): the
     ten reduced configs in fp32 (vectors nudged by numpy noise), 3 steps
     of Adam on warmup-cosine with clip 1.0 on the card and on the CPU
@@ -192,7 +194,7 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     peak memory; the only kernels of the port launched are the dropless
     MoE's grouped products: ``ragged_dot`` 3 a layer's forward (remat's
     recompute included) and 3 a backward, ``ragged_dot_wgrad`` 3 a
-    backward;
+    backward; the bf16 steps took both Hopper routes;
 23. client-axis sharding (``repro_torch.sharding``), on meshes that
     repeat the one card (the engines' ``mesh=`` seam): phase 4's
     repository through the row-strip Eq. 2 rebuild on 1, 2 and 8 shards,
@@ -218,7 +220,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     kernel's launches counted; and the cost model's operations and bytes
     of B1-B4's plain versions at phase 3's, 6's and 8's shapes, beside
     this run's bound of each (the grouped product's three entries at the
-    launch rule's probe shapes too, 1, 7 and 160 groups);
+    launch rule's probe shapes too, 1, 7 and 160 groups, in fp32 on the
+    first route and in bf16 at the Hopper route's probe widths, K = 24
+    and N = 136, on that route);
 25. the LM dry run (``launch/dryrun.py``): qwen2-0.5b at full width on
     phase 22's step (bf16, Adam, batch 8 x seq 128) traced on a 1x1 mesh
     of fake card tensors against one real step on the card (argument
@@ -236,7 +240,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     version within the phase's tolerances, with device and back-to-back
     ms beside its bound, the plain version's ms and the library's
     (``torch._grouped_mm`` where this torch takes the dtype and strides,
-    else the per-expert cuBLAS loop); the edge cases at odd shapes (one
+    else the per-expert cuBLAS loop), and the route each took: bf16 must
+    take the Hopper route (timed beside the first route on the same
+    inputs), fp32 the first; the edge cases at odd shapes,
+    all on the first route (one
     group holding every row, empty groups and rows past the sum, 160
     groups); one full-width dropless FFN's forward and backward of each
     MoE architecture under ``set_sync_debug_mode("error")``, and, not
@@ -244,8 +251,10 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-19 and 23; the grouped product's two
-    kernels' from phases 21 and 22, their times from phase 26), then the
+    its launches in phases 14-19 and 23; the grouped product's four
+    kernels' from phases 21 and 22, the Hopper route's read off its
+    counters, their times from phase 26: bf16 for the Hopper route, fp32
+    for the first), then the
     last line
     ``{"ok": true, "device": {...}}``.
 
@@ -267,8 +276,15 @@ times the dropless MoE path of another checkout and of this one the same
 way: mixtral-8x7b and deepseek-v2-236b at phase 21's depth cuts, a
 dropless forward of phase 21's prefill batch and a dropless train step
 of phase 22's batch, host ms a call and one call's kernels and device
-ms under the profiler (``chiprun_out/moe_against.json``; no result
-line).
+ms under the profiler, then phase 26's nine bf16 grouped products alone,
+device ms each (``chiprun_out/moe_against.json``; no result line).
+
+    python3 chip_smoke.py --ragged-variants
+
+times the grouped product's Hopper route at phase 26's nine bf16 rows
+beside copies of its source built without its products, without its
+loads and without its stores, to see which part holds each row
+(``chiprun_out/ragged_variants.json``; no result line).
 """
 from __future__ import annotations
 
@@ -2297,9 +2313,13 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
     control_logits = teacher(params, cfg, swapped)
     control = lm_gap(got, control_logits)
     counts = ops.launch_counts()
+    kernel_routes = ops.route_counts()
     moe_launches = DROPLESS.hold(label, counts)
     check(DROPLESS.calls > 0 or not cfg.is_moe,
           f"{label}: no dropless MoE forward ran on the card")
+    check(kernel_routes["ragged_dot.tma"] > 0 or not cfg.is_moe,
+          f"{label}: the bf16 dropless forward at the published widths "
+          f"did not take ragged_dot's Hopper route ({kernel_routes})")
     limit = LM_BF16_RTOL[(arch, prompt_len)]
     check(fp32 <= LM_FP32_RTOL,
           f"{label}: fp32 decode is {fp32:.3e} off its forward")
@@ -2379,7 +2399,8 @@ def lm_case(dev, arch: str, prompt_len: int) -> dict:
                 "step_wall_ms": prof["wall_ms"], "bound_ms": bound_ms,
                 "held_steps": held, "bf16_err": bf16, "bf16_limit": limit,
                 "bf16_control": control, "bf16_forward_drift": drift,
-                "fp32_err": fp32, "launches": counts})
+                "fp32_err": fp32, "launches": counts,
+                "routes": kernel_routes})
     del params, r16, cache, got, want
     torch.cuda.empty_cache()
     return out
@@ -2518,6 +2539,8 @@ def moe_serving_phase(dev) -> dict:
     out["launches"] = {name: n + sum(c["launches"][name]
                                      for c in out["cases"])
                        for name, n in counts.items()}
+    out["routes"] = {name: n + sum(c["routes"][name] for c in out["cases"])
+                     for name, n in ops.route_counts().items()}
     return out
 
 
@@ -2915,6 +2938,10 @@ def lm_training_phase(dev) -> dict:
     counts = ops.launch_counts()
     out["moe"] = DROPLESS.hold("LM training", counts)
     check(DROPLESS.backward > 0, "LM training ran no dropless backward")
+    out["routes"] = ops.route_counts()
+    check(all(out["routes"].values()),
+          f"LM training: the bf16 dropless steps at the published widths "
+          f"did not take both Hopper routes ({out['routes']})")
     print(f"  LM training on the card: {out['moe']}")
     out["launches"] = counts
     return out
@@ -3931,8 +3958,47 @@ def probe_phase(dev) -> dict:
     print("  launches at the probe shapes: " + json.dumps(launches))
     check(all(n > 0 for n in launches.values()),
           f"a kernel was not launched at the probe shapes: {launches}")
+    tma = tma_probes(dev)
     return {"cases": len(cases), "max_abs_err": worst,
-            "launches": launches}
+            "launches": launches, "hopper_route": tma}
+
+
+def tma_probes(dev) -> dict:
+    """The grouped product's Hopper route at the launch rule's probe
+    shapes (bf16, M = PROBE_M rows, K = PROBE_TMA_K and N = PROBE_TMA_N,
+    multiples of 8 but of no tile; 1, 7 and 160 groups summing to 10 rows
+    short of M): the forward, the input gradient and the weight gradient,
+    each on that route (its counters read) and held to its plain version
+    with phase 26's bf16 rule."""
+    from repro_torch.analysis import launch_rules as lr
+    from repro_torch.kernels import ops
+    m, k, n = lr.PROBE_M, lr.PROBE_TMA_K, lr.PROBE_TMA_N
+    rng = np.random.default_rng(24)
+    ops.reset_launch_counts()
+    worst = 0.0
+    for g in lr.PROBE_GROUPS:
+        sizes = torch.from_numpy(rng.multinomial(m - 10, np.ones(g) / g)
+                                 .astype(np.int32)).to(dev)
+        lhs, rhs, dout = ragged_operands(m, k, n, g, torch.bfloat16, dev, g)
+        f32 = [t.float() for t in (lhs, rhs, dout)]
+        for entry, (kernel, plain) in ragged_calls(lhs, rhs, dout,
+                                                   sizes).items():
+            worst = max(worst, hold_ragged(
+                f"{entry} at a probe shape (G={g})", kernel(),
+                plain(*f32), torch.bfloat16))
+    torch.cuda.synchronize()
+    routes, counts = ops.route_counts(), ops.launch_counts()
+    n_probes = 3 * len(lr.PROBE_GROUPS)
+    check(routes["ragged_dot.tma"] == 2 * len(lr.PROBE_GROUPS)
+          and routes["ragged_dot_wgrad.tma"] == len(lr.PROBE_GROUPS)
+          and counts["ragged_dot"] + counts["ragged_dot_wgrad"] == n_probes,
+          f"the Hopper route's probes took another route: {routes}, "
+          f"{counts}")
+    print(f"  [{CARD}] the grouped product's Hopper route at (M, K, N) = "
+          f"({m}, {k}, {n}), G in {lr.PROBE_GROUPS}: {n_probes} launches "
+          f"({routes}) held to their plain versions, max |error| "
+          f"{worst:.3e}")
+    return {"launches": routes, "max_abs_err": worst}
 
 
 def cost_beside_bounds(rows: dict) -> dict:
@@ -4224,9 +4290,12 @@ class DroplessCalls:
               f"{label}: ragged_dot / ragged_dot_wgrad launched {got}, not "
               f"{want}: 3 each of {self.calls} dropless layer forwards, "
               f"3 + 3 each of {self.backward} backwards")
+        from repro_torch.kernels import ops
+        routes = ops.route_counts()
         return (f"{self.calls} dropless MoE layer forwards, {self.backward} "
-                f"backwards: ragged_dot {got[0]}, ragged_dot_wgrad {got[1]} "
-                f"launches")
+                f"backwards: ragged_dot {got[0]} (Hopper route "
+                f"{routes['ragged_dot.tma']}), ragged_dot_wgrad {got[1]} "
+                f"(Hopper route {routes['ragged_dot_wgrad.tma']}) launches")
 
 
 DROPLESS = DroplessCalls()
@@ -4313,11 +4382,36 @@ def grouped_mm_call(entry: str, lhs, rhs, dout, sizes, want32):
     return fn, "torch._grouped_mm"
 
 
+def routed(kernel):
+    """(kernel's result, the route its grouped product took: "hopper" or
+    "first"), read off the Hopper route's counters around the call."""
+    from repro_torch.kernels import ops
+    before = ops.route_counts()
+    got = kernel()
+    return got, "hopper" if ops.route_counts() != before else "first"
+
+
+@contextlib.contextmanager
+def first_route():
+    """Inside the block every grouped product takes the first route, to
+    time it beside the Hopper route on the same inputs."""
+    from repro_torch.kernels import ragged_dot as rd
+    keep = rd.takes_tma
+    rd.takes_tma = lambda *args: False
+    try:
+        yield
+    finally:
+        rd.takes_tma = keep
+
+
 def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
                 g: int, dtype) -> dict:
     """The three entries at one case's shapes in one dtype: each against
     its plain version, timed (device and back-to-back ms), beside its
-    bound, the plain version's time and the library yardstick's."""
+    bound, the plain version's time and the library yardstick's. bf16
+    at these published widths must take the Hopper route (fails the
+    phase otherwise), timed beside the first route on the same inputs;
+    fp32 must take the first."""
     rng = np.random.default_rng(26)
     m = tokens * top_k
     sizes_np = routed_sizes(tokens, top_k, g, rng)
@@ -4332,7 +4426,10 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
            "dtype": str(dtype).split(".")[-1]}
     for entry, (kernel, plain) in calls.items():
         name = f"{label} {out['dtype']} {entry}"
-        got = kernel()
+        got, route = routed(kernel)
+        want = "hopper" if dtype == torch.bfloat16 else "first"
+        check(route == want, f"{name}: took the {route} route, not the "
+                             f"{want}")
         want32 = plain(*f32)
         err = hold_ragged(name, got, want32, dtype)
         plain_out = plain(lhs, rhs, dout)
@@ -4342,6 +4439,10 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
         del want32
         ms = cuda_ms(kernel, iters)
         dms = device_ms(kernel, iters)
+        first_ms = None
+        if route == "hopper":
+            with first_route():
+                first_ms = device_ms(kernel, iters)
         plain_ms = cuda_ms(lambda: plain(lhs, rhs, dout), 3, warmup=1)
         if lib is None:                  # the per-expert loop it replaces
             lib_ms = plain_ms
@@ -4360,14 +4461,19 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
         bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / peak \
             else "operations"
         print(f"  [{CARD}] {name} (M={m}, K={d if entry != 'input_grad' else f}"
-              f", N={f if entry != 'input_grad' else d}, G={g}): max |error| "
+              f", N={f if entry != 'input_grad' else d}, G={g}), {route} "
+              f"route: max |error| "
               f"{err:.3e} (plain version on these values {plain_err:.3e}); "
-              f"device {dms:.4f} ms, back to back {ms:.4f} ms; bound "
+              f"device {dms:.4f} ms, back to back {ms:.4f} ms"
+              + (f" (the first route on these inputs: device "
+                 f"{first_ms:.4f} ms)" if first_ms is not None else "")
+              + f"; bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, "
               f"{flops / 1e9:.1f} GFLOP; {bound_ms / dms:.1%}); plain "
               f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms back to back "
               f"[{lib_what}]")
         out[entry] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
+                      "route": route, "first_route_ms": first_ms,
                       "ms": dms, "back_to_back_ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "library": lib_what, "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "flops": flops}
@@ -4395,8 +4501,10 @@ def ragged_edges(dev) -> dict:
             f32 = [t.float() for t in (lhs, rhs, dout)]
             for entry, (kernel, plain) in ragged_calls(lhs, rhs, dout,
                                                        sizes).items():
-                got = kernel()
+                got, route = routed(kernel)
                 name = f"edge {kind} {str(dtype).split('.')[-1]} {entry}"
+                check(route == "first", f"{name}: took the {route} route at "
+                                        f"widths not multiples of 8")
                 err = hold_ragged(name, got, plain(*f32), dtype)
                 if entry == "wgrad":
                     check(not got[torch.from_numpy(sizes_np == 0)
@@ -4407,7 +4515,8 @@ def ragged_edges(dev) -> dict:
                           f"{name}: a row past the groups is not 0")
                 key = str(dtype).split(".")[-1]
                 worst[key] = max(worst.get(key, 0.0), err)
-    print(f"  [{CARD}] edge cases at (M, K, N) = {RAGGED_EDGE}: one group "
+    print(f"  [{CARD}] edge cases at (M, K, N) = {RAGGED_EDGE}, all on the "
+          f"first route: one group "
           f"holding every row, empty groups and 40 rows past the sum, 160 "
           f"groups; forward, input gradient and weight gradient held to "
           f"their plain versions, rows past the sum and empty groups' "
@@ -4544,7 +4653,9 @@ def moe_times(src: str) -> dict:
     a dropless train step at one layer (SGD, ~10 B a param; phase 22's
     batch 8 x seq 128, the loss not read): host ms a call (median of
     MOE_AGAINST_ITERS after two warm-ups) and one call's kernels and
-    device ms under the profiler."""
+    device ms under the profiler; then the grouped product alone, phase
+    26's nine bf16 rows on phase 26's inputs, device ms each with the
+    kernels ``src`` picks."""
     sys.path.insert(0, src)
     from repro_torch.configs import InputShape, concrete_inputs, get_config
     from repro_torch.launch.steps import make_train_step
@@ -4591,6 +4702,18 @@ def moe_times(src: str) -> dict:
             del params, fn
             torch.cuda.empty_cache()
         out[arch] = row
+    kernels = {}
+    for label, tokens, top_k, d, f, g in RAGGED_CASES:
+        rng = np.random.default_rng(26)
+        sizes = torch.from_numpy(routed_sizes(tokens, top_k, g, rng)).to(dev)
+        lhs, rhs, dout = ragged_operands(tokens * top_k, d, f, g,
+                                         torch.bfloat16, dev, 26)
+        for entry, (kernel, _) in ragged_calls(lhs, rhs, dout,
+                                               sizes).items():
+            kernels[f"{label} {entry}"] = device_ms(kernel, 10)
+        del lhs, rhs, dout
+        torch.cuda.empty_cache()
+    out["ragged_device_ms"] = kernels
     return out
 
 
@@ -4620,9 +4743,98 @@ def moe_against(other: Path) -> int:
                       f"{[round(x, 2) for x in r['ms_all']]}), one call "
                       f"under the profiler {r['device_ms']} device ms in "
                       f"{r['kernels']} kernels, busy {r['busy_share']}")
+        print(f"  [{row['card']}] {label:5s} grouped product, device ms: "
+              + "; ".join(f"{k} {v:.4f}"
+                          for k, v in row["ragged_device_ms"].items()))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "moe_against.json").write_text(json.dumps(runs, indent=2))
+    return 0
+
+
+# the Hopper route of the grouped product with one part taken out, to see
+# which part holds it (--ragged-variants): (name, the line of
+# csrc/ragged_dot.cu replaced, its replacement)
+RAGGED_VARIANTS = (
+    ("no products",
+     "    wgmma_m64n256k16<TA, TB>(acc, da, db, (first && kk == 0) ? 0 : 1);\n",
+     ""),
+    ("no loads", "bar_expect(&full[slot], bytes);",
+     "bar_expect(&full[slot], 0);"),
+    ("no stores", "      if (row < rend && col < cols)\n",
+     "      if (row < 0)\n"))
+
+
+def ragged_variants() -> int:
+    """The Hopper route at phase 26's nine bf16 rows, device ms, beside
+    copies of csrc/ragged_dot.cu built without its products (loads and
+    ring only), without its loads (products on whatever the ring holds)
+    and without its stores, in turns (the tree's, each copy, the tree's);
+    a dense cuBLAS product of mixtral's whole train batch for scale.
+    Prints the times; they also go to ``chiprun_out/ragged_variants.json``
+    (no result line)."""
+    import ctypes
+    import re
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    global CARD
+    CARD = smi("name,power.limit")
+    build.build_all()
+    src = (build.CSRC / "ragged_dot.cu").read_text()
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, old, new in RAGGED_VARIANTS:
+        text = src.replace(old, new)
+        if name == "no loads":       # and no TMA issued
+            text = re.sub(r"(?m)^(\s+)tma_load\(", r"\1if (0) tma_load(", text)
+        check(text != src, f"{name}: csrc/ragged_dot.cu has no such line")
+        cu = out_dir / f"{name.replace(' ', '_')}.cu"
+        cu.write_text(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc(), *build.FLAGS, "-o", str(cu.with_suffix(".so")),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    libs = {"tree": build.load("ragged_dot")}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        check(proc.returncode == 0, f"{name}: nvcc failed: {err[-2000:]}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"{name.replace(' ', '_')}.so"))
+
+    def use(name):
+        build._libs["ragged_dot"] = libs[name]
+        build._entries.clear()
+
+    dev = torch.device("cuda")
+    rows = {}
+    for label, tokens, top_k, d, f, g in RAGGED_CASES:
+        rng = np.random.default_rng(26)
+        m = tokens * top_k
+        sizes = torch.from_numpy(routed_sizes(tokens, top_k, g, rng)).to(dev)
+        lhs, rhs, dout = ragged_operands(m, d, f, g, torch.bfloat16, dev, 26)
+        for entry, (kernel, _) in ragged_calls(lhs, rhs, dout,
+                                               sizes).items():
+            row = {}
+            for name in ("tree", *procs, "tree"):
+                use(name)
+                row.setdefault(name, []).append(device_ms(kernel, 10))
+            rows[f"{label} {entry}"] = row
+            print(f"  [{CARD}] {label} {entry} (M={m}) device ms: "
+                  + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
+                              for k, v in row.items()), flush=True)
+        if m == max(t * k for _, t, k, *_ in RAGGED_CASES):
+            dense = device_ms(lambda: lhs @ rhs[0], 10)
+            rows["dense cuBLAS"] = {"ms": dense, "shape": [m, d, f]}
+            print(f"  [{CARD}] dense cuBLAS ({m}, {d}) @ ({d}, {f}) bf16: "
+                  f"{dense:.4f} ms, {2 * m * d * f / dense / 1e9:.0f} "
+                  f"TFLOP/s")
+        del lhs, rhs, dout
+        torch.cuda.empty_cache()
+    use("tree")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ragged_variants.json").write_text(json.dumps(
+        {"card": CARD, "rows": rows}, indent=2))
     return 0
 
 
@@ -4651,11 +4863,17 @@ SOURCES = {
                               "src/repro/kernels/dequant_kl.py:39"),
     # no Pallas kernel: jax.lax.ragged_dot, one XLA op of the reference's
     # dropless MoE FFN (forward; the input gradient is the same kernel on
-    # rhs read transposed), and its weight gradient
+    # rhs read transposed), and its weight gradient: the first route
+    # (fp32, odd widths) and the Hopper route (bf16 at K, N multiples of
+    # 8: TMA, wgmma, persistent blocks)
     "ragged_dot": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                    "src/repro/models/ffn.py:151"),
     "ragged_dot_wgrad": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                          "src/repro/models/ffn.py:151"),
+    "ragged_dot_tma": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
+                       "src/repro/models/ffn.py:151"),
+    "ragged_dot_wgrad_tma": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
+                             "src/repro/models/ffn.py:151"),
 }
 # the kernels each federation must launch (the dense Eq. 5 entry is on
 # neither: both SQMD graphs carry their neighbor lists)
@@ -4711,6 +4929,8 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--moe-against":
         return moe_against(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 2 and sys.argv[1] == "--ragged-variants":
+        return ragged_variants()
     if len(sys.argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -4868,14 +5088,27 @@ def main() -> int:
           "their plain versions at the MoE widths, the edges, sync-free")
     ragged = ragged_phase(dev)
     # the grouped product's rows: mixtral-8x7b's prefill forward and its
-    # train batch's weight gradient, bf16; their launches from the MoE
-    # paths' runs, phases 21 (serving: forwards) and 22 (training)
+    # train batch's weight gradient, bf16 on the Hopper route and fp32 on
+    # the first; their launches from the MoE paths' runs, phases 21
+    # (serving: forwards) and 22 (training), the Hopper route's read off
+    # its counters (the bf16 runs at the published widths), the first
+    # route's the rest (the fp32 twins)
     for name, case, entry in (
-            ("ragged_dot", "mixtral-8x7b prefill bfloat16", "forward"),
-            ("ragged_dot_wgrad", "mixtral-8x7b train bfloat16", "wgrad")):
+            ("ragged_dot_tma", "mixtral-8x7b prefill bfloat16", "forward"),
+            ("ragged_dot_wgrad_tma", "mixtral-8x7b train bfloat16", "wgrad"),
+            ("ragged_dot", "mixtral-8x7b prefill float32", "forward"),
+            ("ragged_dot_wgrad", "mixtral-8x7b train float32", "wgrad")):
         rows[name] = ragged["cases"][case][entry]
-        launches[name] = (moe_serving["launches"][name]
-                          + lm_training["launches"][name])
+    for name in ("ragged_dot", "ragged_dot_wgrad"):
+        total = (moe_serving["launches"][name]
+                 + lm_training["launches"][name])
+        hopper = (moe_serving["routes"][f"{name}.tma"]
+                  + lm_training["routes"][f"{name}.tma"])
+        launches[f"{name}_tma"] = hopper
+        launches[name] = total - hopper
+    check(all(launches[name] > 0 for name in SOURCES),
+          f"a kernel of the main path was launched no time: "
+          f"{ {name: launches[name] for name in SOURCES} }")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],

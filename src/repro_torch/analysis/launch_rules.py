@@ -15,7 +15,8 @@ of any tile, the rule holds each geometry to four things:
   * dynamic shared memory fits the 227 KB a block may take, and the
     block and grid fit the card's limits,
   * every global stride of a ``CUtensorMap`` operand (the 3xTF32 GEMM's
-    planes) is a multiple of 16 bytes.
+    planes, the grouped product's Hopper route's operands) is a multiple
+    of 16 bytes.
 
 The geometry is pure Python, so the rule runs on the CPU. ``chip_smoke``
 launches each kernel at the same probe shapes on the card and holds it
@@ -40,8 +41,11 @@ PROBE_SLOTS = (5, 4096)
 PROBE_THIN = (1, 2, 3, 5, 9, 13, 16)
 PROBE_MANY = (1031, 100_003)
 PROBE_BLOCKS_PER_SM = (1, 8)
-# the grouped product's group counts: one, a few, deepseek-v2-236b's 160
+# the grouped product's group counts: one, a few, deepseek-v2-236b's 160;
+# its Hopper route's widths, K and N multiples of 8 as that route takes
+# them but of no tile (64 deep, 128 x 256)
 PROBE_GROUPS = (1, 7, 160)
+PROBE_TMA_K, PROBE_TMA_N = 24, 136
 
 MAX_THREADS = 1024
 MAX_GRID_YZ = 65535
@@ -84,6 +88,17 @@ def probe_geometries(sms: int = H100_SMS) -> List[Tuple[str, Geometry]]:
                      rd.launch_geometry(m, k, g, elem, True)),
                     (f"K={k},N={u},G={g},{elem}B",
                      rd.wgrad_geometry(k, u, g, elem))]
+    # its Hopper route (bf16, K and N multiples of 8): the persistent grid
+    # over the tiles' bound, one pass and (160 groups) several, and its
+    # tensor maps' strides
+    tk, tn = PROBE_TMA_K, PROBE_TMA_N
+    for g in PROBE_GROUPS:
+        out += [(f"M={m},K={tk},N={tn},G={g}",
+                 rd.tma_geometry(m, tk, tn, g, False, sms)),
+                (f"M={m},K={tn},N={tk},G={g},rhs^T",
+                 rd.tma_geometry(m, tn, tk, g, True, sms)),
+                (f"M={m},K={tk},N={tn},G={g}",
+                 rd.tma_wgrad_geometry(m, tk, tn, g, sms))]
     for t in PROBE_THIN:
         for many in PROBE_MANY:
             for per_sm in PROBE_BLOCKS_PER_SM:

@@ -37,14 +37,27 @@ _COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
              "ragged_dot_wgrad": (_rd, "wgrad_launches")}
 
 
+# launches of one route of a kernel that has two, by the shape it was
+# given (already counted in that kernel's total above)
+_ROUTE_COUNTERS = {"ragged_dot.tma": (_rd, "tma_launches"),
+                   "ragged_dot_wgrad.tma": (_rd, "tma_wgrad_launches")}
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel (plain-version calls not counted)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _COUNTERS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """Launches so far of the Hopper route of ``ragged_dot`` and
+    ``ragged_dot_wgrad`` (the rest of their totals took the first)."""
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _ROUTE_COUNTERS.items()}
+
+
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTERS.values():
+    for mod, attr in (*_COUNTERS.values(), *_ROUTE_COUNTERS.values()):
         setattr(mod, attr, 0)
 
 

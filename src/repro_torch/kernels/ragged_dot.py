@@ -18,20 +18,41 @@ formula, 2 M K N a product, the reference's dense-equivalent count for
 ``ragged-dot`` (``launch/graph_cost.py`` reads the same registry).
 
 A CPU tensor takes the plain version (one product a nonempty group, the
-group sizes read on the host); a CUDA tensor launches the kernel or
+group sizes read on the host); a CUDA tensor launches a kernel or
 raises. The kernels read the group sizes on the device only: nothing
-here synchronises with the host. ``launches`` and ``wgrad_launches``
-count kernel launches only.
+here synchronises with the host.
+
+Two hand kernels a product, chosen by shape (``takes_tma``), never by
+a failure:
+
+  * the Hopper route (bf16 whose K and N are multiples of 8 and whose
+    operands are 16-byte aligned: every published MoE width;
+    ``ragged_dot_tma`` / ``ragged_dot_wgrad_tma``): TMA loads into an
+    mbarrier ring fed by one producer warp, two consumer warpgroups on
+    ``wgmma`` m64n256k16 over 128 x 256 tiles, persistent blocks (one an
+    SM) that walk a linear tile index (``tma_walk``,
+    ``tma_wgrad_walk``). Bound: the bytes (every expert's weights read,
+    or their gradient written, once; ~0.28 ms at mixtral-8x7b's widths,
+    ~0.76 ms at deepseek-v2-236b's on 3.35 TB/s) or, at mixtral's 2048
+    train rows, as much the 240 GFLOP (~0.24 ms at 989 TFLOP/s);
+  * the first route (fp32 on IEEE FFMA, bf16 at other shapes on WMMA,
+    cp.async rings; ``ragged_dot`` / ``ragged_dot_wgrad``).
+
+``launches`` and ``wgrad_launches`` count kernel launches of both
+routes; ``tma_launches`` and ``tma_wgrad_launches`` those of the Hopper
+route.
 """
 from __future__ import annotations
 
+import bisect
 from typing import Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.geometry import Cover, Geometry, blocks
+from repro_torch.kernels.geometry import (H100_SMS, Cover, Geometry,
+                                          TensorMap, blocks, num_sms)
 from repro_torch.kernels.ref import ragged_dot_ref as plain
 from repro_torch.kernels.ref import ragged_dot_wgrad_ref as plain_wgrad
 
@@ -39,15 +60,28 @@ from repro_torch.kernels.ref import ragged_dot_wgrad_ref as plain_wgrad
 # ints (the stream comes last)
 SOURCE = "ragged_dot"
 ENTRY, WGRAD_ENTRY = "ragged_dot", "ragged_dot_wgrad"
-ENTRIES = {ENTRY: (4, 10), WGRAD_ENTRY: (4, 10)}
+TMA_ENTRY, TMA_WGRAD_ENTRY = "ragged_dot_tma", "ragged_dot_wgrad_tma"
+ENTRIES = {ENTRY: (4, 10), WGRAD_ENTRY: (4, 10), TMA_ENTRY: (4, 8),
+           TMA_WGRAD_ENTRY: (4, 7)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUPS = 1024  # the group tables live in a block's shared memory
 BM, BN, BK = 64, 128, 32   # csrc/ragged_dot.cu's output tile and stage
 THREADS = 256              # csrc/ragged_dot.cu's block
 STAGES = {2: 4, 4: 3}      # its forward's ring stages, by element size
 WGRAD_STAGES = 2           # its weight gradient's
+# the Hopper route: a 128 x 256 tile (two consumer warpgroups of 64 rows),
+# 64-deep stages, the ring's stages, a producer warpgroup and two
+# consumers, the ring + 1024 bytes of alignment, one persistent block an
+# SM
+TMA_BM, TMA_BN, TMA_BK = 128, 256, 64
+TMA_STAGES = 4
+TMA_THREADS = 384
+TMA_SMEM = TMA_STAGES * (TMA_BM * TMA_BK + TMA_BK * TMA_BN) * 2 + 1024
+TMA_BLOCKS_PER_SM = 1
 launches = 0
 wgrad_launches = 0
+tma_launches = 0
+tma_wgrad_launches = 0
 
 
 def ring_bytes(elem: int, a: Tuple[int, int], b: Tuple[int, int],
@@ -93,6 +127,120 @@ def wgrad_geometry(k: int, n: int, g: int, elem: int) -> Geometry:
                     (Cover("columns (N)", 0, BN, n),
                      Cover("rows of a group's weight (K)", 1, BM, k),
                      Cover("groups (G)", 2, 1, g)))
+
+
+def takes_tma(dtype: torch.dtype, m: int, k: int, n: int, *tensors) -> bool:
+    """Whether a call takes the Hopper route: bf16, at least one row, K
+    and N multiples of 8 (each row a whole number of 16-byte units, as a
+    tensor map's strides must be) and every operand 16-byte aligned.
+    Any other call (fp32, odd widths) takes the first route."""
+    return (dtype == torch.bfloat16 and m > 0 and k > 0 and n > 0
+            and k % 8 == 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def tma_tables(sizes, m: int):
+    """The kernel's group tables: each group's first row ``off[g]``
+    (sizes clamped at 0, the running sum at M) and first row tile
+    ``tile[g]``, for g <= G + 1; the zero tail past the groups is group G
+    (``off[G + 1] = M``)."""
+    off, tile, at, t = [], [], 0, 0
+    for size in list(sizes) + [m]:
+        off.append(at)
+        tile.append(t)
+        end = min(at + max(int(size), 0), m)
+        t += blocks(end - at, TMA_BM)
+        at = end
+    off.append(m)
+    tile.append(t)
+    return off, tile
+
+
+def _persistent(tiles: int, sms: int) -> int:
+    """One block an SM, never more blocks than tiles."""
+    return max(1, min(tiles, TMA_BLOCKS_PER_SM * sms))
+
+
+def tma_tiles(m: int, n: int, g: int) -> int:
+    """The forward's tiles, bounded without the sizes: each group's row
+    tiles and the zero tail's (at most cdiv(M, 128) + G, as cdiv(a) +
+    cdiv(b) <= cdiv(a + b) + 1 over G + 1 terms) by cdiv(N, 256)."""
+    return (blocks(m, TMA_BM) + g) * blocks(n, TMA_BN)
+
+
+def tma_args(m: int, n: int, g: int, sms: int) -> Tuple[int, int, int]:
+    """The Hopper forward's persistent grid: one block an SM, never more
+    blocks than tiles; threads a block, dynamic shared memory."""
+    return _persistent(tma_tiles(m, n, g), sms), TMA_THREADS, TMA_SMEM
+
+
+def tma_walk(sizes, m: int, n: int, grid: int):
+    """The Hopper forward's tiles as its blocks take them: block b takes
+    tiles b, b + grid, ... of the linear index over (group, column tile,
+    row tile), the zero tail last; yields (block, group, first row, the
+    group's end row, first column). A tile's rows from its group's end on
+    are not stored."""
+    g = len(sizes)
+    off, tile = tma_tables(sizes, m)
+    ncol = blocks(n, TMA_BN)
+    starts = [t * ncol for t in tile[:g + 1]]
+    for b in range(grid):
+        for t in range(b, tile[g + 1] * ncol, grid):
+            grp = bisect.bisect_right(starts, t) - 1
+            local = t - starts[grp]
+            rows = tile[grp + 1] - tile[grp]
+            yield (b, grp, off[grp] + (local % rows) * TMA_BM, off[grp + 1],
+                   (local // rows) * TMA_BN)
+
+
+def tma_geometry(m: int, k: int, n: int, g: int, transpose_rhs: bool,
+                 sms: int = H100_SMS) -> Geometry:
+    grid, threads, smem = tma_args(m, n, g, sms)
+    tiles = tma_tiles(m, n, g)
+    rhs = (TensorMap("rhs (G, N, K)", (k, n, g), (2 * k, 2 * k * n))
+           if transpose_rhs else
+           TensorMap("rhs (G, K, N)", (n, k, g), (2 * n, 2 * n * k)))
+    return Geometry(TMA_ENTRY, (grid, 1, 1), (threads, 1, 1), smem,
+                    (Cover("tiles: (cdiv(M, 128) + G) row tiles x "
+                           "cdiv(N, 256) column tiles", 0, 1, tiles,
+                           passes=blocks(tiles, grid)),),
+                    (TensorMap("lhs (M, K)", (k, m), (2 * k,)), rhs))
+
+
+def tma_wgrad_tiles(k: int, n: int, g: int) -> int:
+    """The Hopper weight gradient's tiles: G x cdiv(K, 128) x cdiv(N, 256)
+    (every group's, an empty one's stored 0)."""
+    return g * blocks(k, TMA_BM) * blocks(n, TMA_BN)
+
+
+def tma_wgrad_args(k: int, n: int, g: int,
+                   sms: int) -> Tuple[int, int, int]:
+    return _persistent(tma_wgrad_tiles(k, n, g), sms), TMA_THREADS, TMA_SMEM
+
+
+def tma_wgrad_walk(sizes, m: int, k: int, n: int, grid: int):
+    """The Hopper weight gradient's tiles as its blocks take them: block b
+    takes tiles b, b + grid, ... of the linear index over (group, K tile,
+    N tile); yields (block, group, first K row, first column, the group's
+    first and end rows)."""
+    off, _ = tma_tables(sizes, m)
+    nk, nn = blocks(k, TMA_BM), blocks(n, TMA_BN)
+    for b in range(grid):
+        for t in range(b, len(sizes) * nk * nn, grid):
+            grp, local = divmod(t, nk * nn)
+            yield (b, grp, (local // nn) * TMA_BM, (local % nn) * TMA_BN,
+                   off[grp], off[grp + 1])
+
+
+def tma_wgrad_geometry(m: int, k: int, n: int, g: int,
+                       sms: int = H100_SMS) -> Geometry:
+    grid, threads, smem = tma_wgrad_args(k, n, g, sms)
+    tiles = tma_wgrad_tiles(k, n, g)
+    return Geometry(TMA_WGRAD_ENTRY, (grid, 1, 1), (threads, 1, 1), smem,
+                    (Cover("tiles: G x cdiv(K, 128) x cdiv(N, 256)", 0, 1,
+                           tiles, passes=blocks(tiles, grid)),),
+                    (TensorMap("lhs (M, K)", (k, m), (2 * k,)),
+                     TensorMap("grad (M, N)", (n, m), (2 * n,))))
 
 
 def _shapes(lhs, rhs, group_sizes, transpose_rhs: bool):
@@ -161,14 +309,23 @@ def _ragged_dot_cuda(lhs, rhs, group_sizes, transpose_rhs):
         return out
     if g == 0:
         return out.zero_()
-    global launches
-    fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
-    code = fn(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
-              out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
-              int(transpose_rhs),
-              *launch_args(m, n, g, lhs.element_size(), transpose_rhs),
-              torch.cuda.current_stream(lhs.device).cuda_stream)
-    build.check(ENTRY, code)
+    global launches, tma_launches
+    ptrs = (lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    if takes_tma(lhs.dtype, m, k, n, lhs, rhs, out):
+        fn = build.entry(SOURCE, TMA_ENTRY, *ENTRIES[TMA_ENTRY])
+        code = fn(*ptrs, m, k, n, g, int(transpose_rhs),
+                  *tma_args(m, n, g, num_sms(lhs.device)), stream)
+        build.check(TMA_ENTRY, code)
+        tma_launches += 1
+    else:
+        fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
+        code = fn(*ptrs, m, k, n, g, int(lhs.dtype == torch.bfloat16),
+                  int(transpose_rhs),
+                  *launch_args(m, n, g, lhs.element_size(), transpose_rhs),
+                  stream)
+        build.check(ENTRY, code)
     launches += 1
     return out
 
@@ -215,13 +372,21 @@ def _ragged_dot_wgrad_cuda(lhs, grad, group_sizes):
     out = torch.empty((g, k, n), dtype=lhs.dtype, device=lhs.device)
     if out.numel() == 0:
         return out
-    global wgrad_launches
-    fn = build.entry(SOURCE, WGRAD_ENTRY, *ENTRIES[WGRAD_ENTRY])
-    code = fn(lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
-              out.data_ptr(), m, k, n, g, int(lhs.dtype == torch.bfloat16),
-              *wgrad_args(k, n, g, lhs.element_size()),
-              torch.cuda.current_stream(lhs.device).cuda_stream)
-    build.check(WGRAD_ENTRY, code)
+    global wgrad_launches, tma_wgrad_launches
+    ptrs = (lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr())
+    stream = torch.cuda.current_stream(lhs.device).cuda_stream
+    if takes_tma(lhs.dtype, m, k, n, lhs, grad, out):
+        fn = build.entry(SOURCE, TMA_WGRAD_ENTRY, *ENTRIES[TMA_WGRAD_ENTRY])
+        code = fn(*ptrs, m, k, n, g,
+                  *tma_wgrad_args(k, n, g, num_sms(lhs.device)), stream)
+        build.check(TMA_WGRAD_ENTRY, code)
+        tma_wgrad_launches += 1
+    else:
+        fn = build.entry(SOURCE, WGRAD_ENTRY, *ENTRIES[WGRAD_ENTRY])
+        code = fn(*ptrs, m, k, n, g, int(lhs.dtype == torch.bfloat16),
+                  *wgrad_args(k, n, g, lhs.element_size()), stream)
+        build.check(WGRAD_ENTRY, code)
     wgrad_launches += 1
     return out
 

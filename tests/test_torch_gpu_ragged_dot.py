@@ -9,10 +9,14 @@ The forward, the forward on rhs transposed (the input gradient) and the
 weight gradient against their plain versions in fp32 and bf16, at odd
 shapes (no extent a tile's multiple, scalar loads) and aligned ones
 (16-byte loads), with empty groups, one group holding every row, rows past
-the groups' sum and 160 groups; the op's autograd on the card against the
-CPU's; the dropless FFN's forward and backward under
-``torch.cuda.set_sync_debug_mode("error")``, with exactly three forward
-launches a layer and three plus three in the backward.
+the groups' sum and 160 groups; the Hopper route (bf16, K and N multiples
+of 8) on its own edges, its route counter read: groups straddling every
+tile edge, K a multiple of 8 but not of 64, empty first and last groups,
+rows past the sum, 160 groups, more tiles than one persistent pass; the
+op's autograd on the card against the CPU's; the dropless FFN's forward
+and backward under ``torch.cuda.set_sync_debug_mode("error")``, with
+exactly three forward launches a layer and three plus three in the
+backward.
 """
 import numpy as np
 import pytest
@@ -95,6 +99,81 @@ def test_kernels_match_plain(hopper, dtype, shape, kind):
     assert not cases[0][0][used:].any() and not cases[1][0][used:].any()
     for i in np.flatnonzero(sizes == 0):
         assert not cases[2][0][i].any()
+
+
+# the Hopper route's cases: (M, K, N) and the group sizes
+TMA_CASES = {
+    # groups ending one row before, on and after every 64- and 128-row
+    # edge, N past one 256-column tile
+    "straddling_tile_edges": (1200, 128, 520,
+                              [1, 63, 64, 65, 127, 128, 129, 255, 256, 112]),
+    # K = 200 (three 64-deep stages and a part), N = 264
+    "k_not_a_stage_multiple": (300, 200, 264, [70, 90, 140]),
+    # empty first and last groups, 40 rows past the sum
+    "empty_ends_rows_past_the_sum": (300, 64, 136, [0, 100, 0, 160, 0]),
+    "160_groups": (1536, 136, 264, None),
+    # (cdiv(4096, 128) + 8) x 8 column tiles: more than 132 blocks take
+    "several_passes": (4096, 64, 2048, [512] * 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TMA_CASES))
+def test_hopper_route_matches_plain(hopper, case):
+    m, k, n, sizes = TMA_CASES[case]
+    rng = np.random.default_rng(2)
+    if sizes is None:
+        sizes = _sizes("160_groups", m, rng)
+    sizes = np.asarray(sizes, np.int32)
+    g = len(sizes)
+    if case == "several_passes":
+        assert rd.tma_tiles(m, n, g) > 132
+
+    def draw(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32)) \
+            .to(torch.bfloat16).to(hopper)
+
+    lhs, rhs, dout = draw(m, k), draw(g, k, n), draw(m, n)
+    ts = torch.from_numpy(sizes).to(hopper)
+    f32 = [t.float() for t in (lhs, rhs, dout)]
+    before = ops.route_counts()
+    cases = [
+        (rd.ragged_dot(lhs, rhs, ts, False),
+         ragged_dot_ref(f32[0], f32[1], ts), np.sqrt(k)),
+        (rd.ragged_dot(dout, rhs, ts, True),
+         ragged_dot_ref(f32[2], f32[1], ts, True), np.sqrt(n)),
+        (rd.ragged_dot_wgrad(lhs, dout, ts),
+         ragged_dot_wgrad_ref(f32[0], f32[2], ts), np.sqrt(m))]
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    assert after["ragged_dot.tma"] - before["ragged_dot.tma"] == 2
+    assert after["ragged_dot_wgrad.tma"] \
+        - before["ragged_dot_wgrad.tma"] == 1
+    used = int(min(sizes.sum(), m))
+    for got, want, scale in cases:
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        _close(got, want, torch.bfloat16, float(scale))
+    assert not cases[0][0][used:].any() and not cases[1][0][used:].any()
+    for i in np.flatnonzero(sizes == 0):
+        assert not cases[2][0][i].any()
+
+
+def test_first_route_keeps_fp32_and_odd_widths(hopper):
+    """fp32 at aligned widths and bf16 at odd ones take the first route:
+    the totals move, the Hopper route's counters do not."""
+    sizes = torch.tensor([30, 0, 50], dtype=torch.int32, device=hopper)
+    before, routes = ops.launch_counts(), ops.route_counts()
+    for dtype, k, n in ((torch.float32, 64, 136), (torch.bfloat16, 21, 136),
+                        (torch.bfloat16, 64, 131)):
+        lhs = torch.randn(90, k, device=hopper).to(dtype)
+        rhs = torch.randn(3, k, n, device=hopper).to(dtype)
+        dout = torch.randn(90, n, device=hopper).to(dtype)
+        rd.ragged_dot(lhs, rhs, sizes, False)
+        rd.ragged_dot_wgrad(lhs, dout, sizes)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["ragged_dot"] - before["ragged_dot"] == 3
+    assert after["ragged_dot_wgrad"] - before["ragged_dot_wgrad"] == 3
+    assert ops.route_counts() == routes
 
 
 def test_autograd_on_the_card_matches_the_cpu(hopper):

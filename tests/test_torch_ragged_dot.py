@@ -10,7 +10,11 @@ run in ``tests/test_torch_gpu_ragged_dot.py`` and ``chip_smoke.py``):
   * the op's autograd against autograd through the plain per-group loop
     the dropless FFN ran before, bit for bit;
   * the dropless FFN's forward and backward on fake tensors, which cannot
-    be read on the host: no host sync is left on the path.
+    be read on the host: no host sync is left on the path;
+  * the Hopper route's tile walks (the Python twins of the kernels'),
+    which must store every output row, the zero tail included, and every
+    weight-gradient tile exactly once, and its choice by dtype,
+    alignment and widths.
 """
 import jax
 import jax.numpy as jnp
@@ -203,8 +207,117 @@ def test_kernel_geometry_and_card_checks():
     gx, gy, threads, smem = rd.launch_args(257, 131, 160, 2, False)
     assert (gx, gy, threads, smem) == (5 + 160, 2, rd.THREADS, 4 * 13824)
     assert rd.wgrad_args(21, 131, 7, 4)[:4] == (2, 1, 7, rd.THREADS)
+    # the Hopper route's tile, stages, threads and shared memory: a ring
+    # of 4 stages of a 128 x 64 lhs tile and a 64 x 256 rhs tile, 1024
+    # bytes to align; its persistent grids: one block an SM, never more
+    # blocks than the tiles' bound
+    assert (constexpr("TMA_BM"), constexpr("TMA_BN"), constexpr("TMA_BK"),
+            constexpr("TMA_STAGES"), constexpr("TMA_THREADS"),
+            constexpr("TMA_SMEM")) == (
+        rd.TMA_BM, rd.TMA_BN, rd.TMA_BK, rd.TMA_STAGES, rd.TMA_THREADS,
+        rd.TMA_SMEM) == (128, 256, 64, 4, 384, 4 * 49152 + 1024)
+    assert rd.tma_args(512, 14336, 8, 132) == (132, 384, rd.TMA_SMEM)
+    assert rd.tma_tiles(257, 136, 7) == (3 + 7) * 1
+    assert rd.tma_args(257, 136, 7, 132)[0] == 10
+    assert rd.tma_wgrad_args(24, 136, 160, 132)[0] == 132
     lhs, rhs, sizes, _ = _inputs(CASES["single"], "float32")
     # mixed dtypes are refused before any device dispatch
     with pytest.raises(TypeError):
         ops.ragged_dot(torch.from_numpy(lhs).double(), torch.from_numpy(rhs),
                        torch.from_numpy(sizes))
+
+
+# --------------------------------------------------------------------------
+# the Hopper route: its tile walks and its choice
+# --------------------------------------------------------------------------
+
+def _walk_sizes(g: int, seed: int):
+    """(M, group sizes): random sizes with empty groups, summing to fewer
+    rows than M (a zero tail); 1024 groups mostly empty."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 300 if g < 100 else 12, g)
+    sizes[rng.random(g) < 0.3] = 0
+    if g > 2:
+        sizes[0] = sizes[-1] = 0
+    return int(sizes.sum()) + 37, sizes
+
+
+@pytest.mark.parametrize("g", [1, 7, 160, 1024])
+def test_tma_walk_stores_every_row_once(g):
+    """The forward's walk over (group, column tile, row tile) on a
+    persistent grid smaller than the tiles (several passes): each row of
+    each column tile is stored by exactly one tile's warpgroup, the zero
+    tail's rows included, and no more tiles run than the bound the grid
+    was sized from."""
+    m, sizes = _walk_sizes(g, g)
+    n = 8 * 67                                   # 3 column tiles
+    ncol = -(-n // rd.TMA_BN)
+    grid = 5
+    stored = np.zeros((m, ncol), np.int64)
+    tiles = list(rd.tma_walk(sizes, m, n, grid))
+    for block, grp, r0, rend, n0 in tiles:
+        assert 0 <= grp <= g and n0 % rd.TMA_BN == 0 and n0 < n
+        for half in range(rd.TMA_BM // 64):     # a consumer warpgroup each
+            lo = r0 + 64 * half
+            stored[lo:max(lo, min(lo + 64, rend)), n0 // rd.TMA_BN] += 1
+    assert (stored == 1).all()
+    assert len(tiles) <= rd.tma_tiles(m, n, g)
+    assert len(tiles) > grid                     # more than one pass
+    # each block takes every grid-th tile of the walk, in order
+    blocks = [t[0] for t in tiles]
+    assert blocks == sorted(blocks)
+    # the zero tail is group g: rows from the sum on
+    tail = [t for t in tiles if t[1] == g]
+    assert min(t[2] for t in tail) == int(sizes.sum())
+
+
+@pytest.mark.parametrize("g", [1, 7, 160, 1024])
+def test_tma_wgrad_walk_takes_every_tile_once(g):
+    """The weight gradient's walk: every (group, K tile, N tile) exactly
+    once, an empty group's too (it stores 0), each summing its group's
+    rows only: [rbeg, rend) the groups' disjoint row ranges in order."""
+    m, sizes = _walk_sizes(g, g + 1)
+    k, n = 8 * 45, 8 * 40                        # 3 K tiles, 2 N tiles
+    grid = 4
+    seen = {}
+    for block, grp, k0, n0, rbeg, rend in rd.tma_wgrad_walk(sizes, m, k, n,
+                                                            grid):
+        key = (grp, k0, n0)
+        assert key not in seen and k0 < k and n0 < n
+        seen[key] = (rbeg, rend)
+    nk, nn = -(-k // rd.TMA_BM), -(-n // rd.TMA_BN)
+    assert len(seen) == g * nk * nn == rd.tma_wgrad_tiles(k, n, g)
+    ends = np.cumsum(np.clip(sizes, 0, None))
+    for (grp, _, _), (rbeg, rend) in seen.items():
+        assert (rbeg, rend) == (int(ends[grp] - sizes[grp]), int(ends[grp]))
+
+
+def test_tma_tables_clamp_like_the_plain_version():
+    """Negative sizes count as 0 and the running sum stops at M, as
+    ``ragged_dot_ref`` reads them; the zero tail is one more group."""
+    off, tile = rd.tma_tables([5, -3, 300, 4], 200)
+    assert off == [0, 5, 5, 200, 200, 200]
+    assert tile == [0, 1, 1, 3, 3, 3]
+    off, tile = rd.tma_tables([0, 130], 300)
+    assert off == [0, 0, 130, 300] and tile == [0, 0, 2, 4]
+
+
+def test_route_follows_dtype_alignment_and_widths():
+    """The Hopper route takes bf16 whose K and N are multiples of 8 and
+    whose operands are 16-byte aligned; fp32, odd widths, a misaligned
+    operand and an empty lhs take the first route."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.zeros(shape, dtype=dtype)
+
+    lhs, rhs = t(40, 64), t(3, 64, 136)
+    assert rd.takes_tma(torch.bfloat16, 40, 64, 136, lhs, rhs)
+    assert not rd.takes_tma(torch.float32, 40, 64, 136,
+                            t(40, 64, dtype=torch.float32),
+                            t(3, 64, 136, dtype=torch.float32))
+    for k, n in ((21, 136), (64, 131), (12, 136), (64, 4)):
+        assert not rd.takes_tma(torch.bfloat16, 40, k, n, t(40, k),
+                                t(3, k, n))
+    shifted = t(40 * 64 + 1)[1:].view(40, 64)    # 2 bytes off 16
+    assert shifted.data_ptr() % 16 == 2
+    assert not rd.takes_tma(torch.bfloat16, 40, 64, 136, shifted, rhs)
+    assert not rd.takes_tma(torch.bfloat16, 0, 64, 136, t(0, 64), rhs)
