@@ -248,10 +248,32 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     groups); one full-width dropless FFN's forward and backward of each
     MoE architecture under ``set_sync_debug_mode("error")``, and, not
     gated, whether a whole dropless prefill and train step are sync-free;
+27. the five walkthroughs (``repro_torch.examples``), each module's
+    ``run()`` on the card at the reference's published sizes, with its
+    wall seconds and launches (the counts set to 0 just before it) and
+    each engine fit's launches: quickstart (``pad_like``, 28 clients, 25
+    rounds) and train_sqmd_federation (40 rounds of sqmd on the MLP
+    tiers) from numpy-made weights and batch draws, each held to its CPU
+    twin on the same ones (History bookkeeping equal, eval logits in
+    phase 5's band up to the first eval that leaves it, if one does:
+    that eval and the edges where the two graphs differ printed, and the
+    CPU's run from weights one fp32 ulp off must leave the band too);
+    async_join (45 rounds, three engines), its times, server rounds,
+    candidates, staleness rows, uploads and fires equal to its CPU
+    twin's; train_and_serve (``until=24``, two admission policies), each
+    policy's requests served and snapshots published equal to its CPU
+    twin's; train_sqmd_federation ``--resnet`` (width 8, 40 rounds,
+    checkpointed under ``build/walkthroughs``); serve_decode on gemma3-1b
+    reduced and at full width (batch 4, prompt 48, decode 24). Every
+    federation walkthrough must launch B1, B2 and the gather, a sqmd fit
+    nothing else (B3's dense route only in async_join's fedmd fit), every
+    engine's state must lie on the card, and serve_decode must launch no
+    kernel of the port; a ``{"walkthroughs": ...}`` line after the total
+    wall time gives each run's seconds and launches;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-19 and 23; the grouped product's four
+    its launches in phases 14-19, 23 and 27; the grouped product's four
     kernels' from phases 21 and 22, the Hopper route's read off its
     counters, their times from phase 26: bf16 for the Hopper route, fp32
     for the first), then the
@@ -1029,16 +1051,12 @@ def async_federation(dev, inputs, run: str, logits_out, protocol=None,
         mesh=shard_mesh(dev, shards))
 
 
-def federation_inputs():
-    """sc_like, its splits, and numpy-made weights and batch draws, shared
-    by every federation run on the card and on the CPU."""
-    from repro_torch.data import make_splits, sc_like
-    from repro_torch.models import hetero_mlp_zoo
-    ds = sc_like()
-    splits = make_splits(ds, seed=0)
-    zoo = hetero_mlp_zoo(ds.feature_len, ds.n_classes)
+def numpy_seams(ds, splits, zoo) -> tuple:
+    """Numpy-made stacked weights (the reference's layout) for clients
+    round-robin over ``zoo``'s MLP tiers, and the batch draws
+    ``draws(step, cohort, batch=32)``: shared by a run on the card and
+    its CPU twin, whose torch generators draw differently."""
     names = list(zoo)
-    # numpy-made weights and batch draws, shared by the card and CPU runs
     rng = np.random.default_rng(2)
     init_params, sizes = {}, []
     for fam, cfg in zoo.items():
@@ -1055,6 +1073,18 @@ def federation_inputs():
         return np.random.default_rng((3, step, ci)).integers(0, m,
                                                              (n_c, batch))
 
+    return init_params, draws
+
+
+def federation_inputs():
+    """sc_like, its splits, and numpy-made weights and batch draws, shared
+    by every federation run on the card and on the CPU."""
+    from repro_torch.data import make_splits, sc_like
+    from repro_torch.models import hetero_mlp_zoo
+    ds = sc_like()
+    splits = make_splits(ds, seed=0)
+    init_params, draws = numpy_seams(
+        ds, splits, hetero_mlp_zoo(ds.feature_len, ds.n_classes))
     return ds, splits, init_params, draws
 
 
@@ -1075,7 +1105,6 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
     ``shards`` both runs split their client axis into that many shards of
     their device; ``engines`` (a list) receives the card's engine."""
     from repro_torch.kernels import ops
-    from repro_torch.optim import state_tensors
     ds, splits, init_params, draws = inputs
 
     def build(d, logits_out):
@@ -1112,18 +1141,10 @@ def federation_phase(dev, server: dict, path: tuple, inputs,
           f"launches other than {exact}: {counts}")
 
     fed = eng.fed
-    tensors = [fed.ref_x, fed.ref_y, fed.targets, *fed.server]
+    tensors = engine_state_tensors(eng)
     if static_weights is not None:
         tensors += [fed.static_weights, eng.policy.neighbors,
                     eng.policy.slot_weights]
-    for sh in (sh for coh in fed.cohorts for sh in coh.shards):
-        tensors += [*sh.model.parameters(), *state_tensors(sh.opt_state),
-                    *sh.data.values()]
-    if run is not None:
-        # uploads still in flight past the horizon hold their payloads
-        for *_, ev in eng.clock._heap:
-            if ev.kind == "upload":
-                tensors += list(ev.payload[1].arrays.values())
     index = getattr(eng.policy, "_ivf", None)
     check((index is not None) == (server.get("selection") == "ivf"),
           "the IVF index is missing or unexpected")
@@ -4640,6 +4661,349 @@ def ragged_phase(dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 27: the five walkthroughs (repro_torch.examples) on the card
+# --------------------------------------------------------------------------
+# the twins' eval logits are held in phase 5's band (hold_logits: within
+# 1e-2, a prediction flipped only at a near tie) up to the first eval that
+# leaves it, if one does; then the CPU run from weights one fp32 ulp off
+# must leave it too (the CPU alone drifts as far)
+WALK_TOL = 1e-2
+WALK_DIR = ROOT / "build" / "walkthroughs"
+
+
+@contextlib.contextmanager
+def fit_launches(fits: list):
+    """Inside, every ``fit`` of either engine appends (engine, the
+    kernels launched during that fit) to ``fits``."""
+    from repro_torch.core import AsyncFederationEngine, FederationEngine
+    from repro_torch.kernels import ops
+    originals = {cls: cls.fit for cls in (FederationEngine,
+                                          AsyncFederationEngine)}
+
+    def counted(fit):
+        def run(self, *args, **kwargs):
+            before = ops.launch_counts()
+            try:
+                return fit(self, *args, **kwargs)
+            finally:
+                after = ops.launch_counts()
+                fits.append((self, {k: after[k] - before[k] for k in after}))
+        return run
+
+    for cls, fit in originals.items():
+        cls.fit = counted(fit)
+    try:
+        yield fits
+    finally:
+        for cls, fit in originals.items():
+            cls.fit = fit
+
+
+def engine_state_tensors(eng) -> list:
+    """Every tensor an engine holds (phase 5's check), the payloads of an
+    asynchronous engine's uploads still in flight past its horizon
+    included."""
+    from repro_torch.optim import state_tensors
+    fed = eng.fed
+    tensors = [fed.ref_x, fed.ref_y, fed.targets, *fed.server]
+    for sh in (sh for coh in fed.cohorts for sh in coh.shards):
+        tensors += [*sh.model.parameters(), *state_tensors(sh.opt_state),
+                    *sh.data.values()]
+    for *_, ev in getattr(eng.clock, "_heap", ()):
+        if ev.kind == "upload":
+            tensors += list(ev.payload[1].arrays.values())
+    return tensors
+
+
+def walk(label: str, fn) -> tuple:
+    """``fn()``, a walkthrough's run on the card, with its wall seconds
+    and launches (the counts set to 0 just before, read just after) and
+    each engine fit's launches."""
+    from repro_torch.kernels import ops
+    fits = []
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fit_launches(fits):
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    print(f"  [{CARD}] {label}: {wall:.2f} s on the card, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return out, {"wall_s": wall, "launches": counts}, fits
+
+
+def hold_fits(label: str, fits: list, engines: list) -> dict:
+    """Fail unless the walkthrough's fits launched B1, B2 and the gather,
+    each sqmd fit nothing off DENSE_PATH (B3's dense route never), each
+    fedmd fit nothing off FEDMD_PATH, and every engine's state tensors
+    lie on the card. Returns the dense route's GEMM and split launches
+    (fedmd fits)."""
+    check({id(e) for e in engines} == {id(e) for e, _ in fits},
+          f"{label}: the engines returned are not the engines fitted")
+    total = {k: sum(c[k] for _, c in fits) for k in fits[0][1]}
+    check(all(total[k] > 0 for k in DENSE_PATH),
+          f"{label}: B1, B2 or the gather never launched: {total}")
+    dense = splits = 0
+    for eng, counts in fits:
+        name = eng.policy.name
+        check(name in ("sqmd", "fedmd"), f"{label}: policy {name}")
+        path = FEDMD_PATH if name == "fedmd" else DENSE_PATH
+        check(all(v == 0 for k, v in counts.items() if k not in path),
+              f"{label}: a {name} fit launched off its path: {counts}")
+        if name == "fedmd":
+            check(counts["neighbor_mean"] > 0,
+                  f"{label}: the fedmd fit never took the dense route")
+            dense += counts["neighbor_mean"]
+            splits += counts["neighbor_mean_split"]
+    n = 0
+    for eng in engines:
+        tensors = engine_state_tensors(eng)
+        check(all(t.is_cuda for t in tensors),
+              f"{label}: a state tensor is off the card")
+        n += len(tensors)
+    print(f"  {label}: {len(fits)} fits, all {n} state tensors on the card; "
+          f"B3's dense route (fedmd fits only): {dense} GEMMs, {splits} "
+          f"splits")
+    return {"dense_route_launches": dense, "dense_split_launches": splits}
+
+
+def eval_in_band(card_ev: dict, cpu_ev: dict, tol: float) -> bool:
+    """hold_logits' test of one eval, without failing."""
+    for fam in card_ev:
+        g, h = card_ev[fam], cpu_ev[fam]
+        flip = g.argmax(-1) != h.argmax(-1)
+        top2 = np.sort(h, -1)[..., -2:]
+        if (np.abs(g - h).max() >= tol
+                or (top2[..., 1] - top2[..., 0])[flip].max(initial=0.0)
+                >= 2 * tol):
+            return False
+    return True
+
+
+def first_out_of_band(a_logits, b_logits, tol: float):
+    """The first eval whose logits leave the band, or None."""
+    return next((i for i, (a, b) in enumerate(zip(a_logits, b_logits))
+                 if not eval_in_band(a, b, tol)), None)
+
+
+def eval_gaps(a_logits, b_logits) -> list:
+    """Per eval, the largest logit difference over the families."""
+    return [max(float(np.abs(a[f] - b[f]).max()) for f in a)
+            for a, b in zip(a_logits, b_logits)]
+
+
+def edges_apart(a: np.ndarray, b: np.ndarray) -> tuple:
+    """(edges only in a, edges only in b) of two (N, N) edge masks."""
+    return ([tuple(map(int, e)) for e in np.argwhere(a & ~b)],
+            [tuple(map(int, e)) for e in np.argwhere(b & ~a)])
+
+
+def held_twins(dev, label: str, module, dataset, **kw) -> dict:
+    """Walkthrough ``module`` on the card and on the CPU from the same
+    numpy-made weights and batch draws (``dataset(60, 120)`` is its data),
+    then on the CPU from those weights one fp32 ulp off. Fails unless the
+    card's fits pass ``hold_fits``, the History bookkeeping is the CPU's,
+    and the eval logits stay in WALK_TOL's band up to the first eval that
+    leaves it, at round 0 at least; where the card leaves the band, the
+    CPU's ulp-off run must leave it too. Prints that eval and the edges
+    in which the two runs' collaboration graphs differ there."""
+    from repro_torch.data import make_splits
+    from repro_torch.models import hetero_mlp_zoo
+    ds = dataset(samples_per_client=60, ref_size=120)
+    splits = make_splits(ds, seed=0, label_noise=0.3)
+    init, draws = numpy_seams(ds, splits,
+                              hetero_mlp_zoo(ds.feature_len, ds.n_classes))
+
+    def run(d, init_params):
+        logits, edges = [], []
+
+        def record_edges(engine, rnd, metrics):
+            edges.append((engine.server.weights > 0).cpu().numpy())
+
+        out = module.run(device=d, init_params=init_params,
+                         batch_indices=lambda step, ci: draws(step, ci, 16),
+                         callbacks=[logit_recorder(splits, logits),
+                                    record_edges], **kw)
+        return out, logits, edges
+
+    (card, card_logits, card_edges), res, fits = walk(
+        label, lambda: run(dev, init))
+    res.update(hold_fits(label, fits, [card["engine"]]))
+    t0 = time.perf_counter()
+    cpu, cpu_logits, cpu_edges = run("cpu", init)
+    res["cpu_twin_s"] = time.perf_counter() - t0
+    _, ulp_logits, _ = run("cpu", one_ulp_off(init, 9))
+    hist, cpu_hist = card["history"], cpu["history"]
+    for key in ("rounds", "times", "server_rounds", "staleness", "bytes_up",
+                "bytes_down"):
+        check(getattr(cpu_hist, key) == getattr(hist, key),
+              f"{label}: card and CPU runs kept different History.{key}")
+    check(len(card_logits) == len(cpu_logits) == len(hist.rounds),
+          f"{label}: the card and CPU runs evaluated at different points")
+    check(all(np.isfinite(hist.mean_acc)), f"{label}: bad accuracy history")
+    out_at = first_out_of_band(card_logits, cpu_logits, WALK_TOL)
+    ulp_at = first_out_of_band(ulp_logits, cpu_logits, WALK_TOL)
+    held = len(cpu_logits) if out_at is None else out_at
+    check(held >= 1, f"{label}: the card left the band at round 0")
+    worst = hold_logits(card_logits[:held], cpu_logits[:held], cpu_hist,
+                        tol=WALK_TOL)
+    graphs_at = next((i for i, (a, b) in enumerate(zip(card_edges,
+                                                       cpu_edges))
+                      if not np.array_equal(a, b)), None)
+    gaps = eval_gaps(card_logits, cpu_logits)
+    ulp_gaps = eval_gaps(ulp_logits, cpu_logits)
+    rounds = hist.rounds
+    print(f"  {label}: eval logits card vs CPU per eval (rounds {rounds}): "
+          + ", ".join(f"{g:.2e}" for g in gaps))
+    print(f"  {label}: CPU from weights one ulp off vs CPU per eval: "
+          + ", ".join(f"{g:.2e}" for g in ulp_gaps))
+    print(f"  {label}: graphs first differ at "
+          + ("no eval" if graphs_at is None else f"round {rounds[graphs_at]}")
+          + f"; mean accuracy card {hist.mean_acc[-1]:.4f}, CPU "
+          f"{cpu_hist.mean_acc[-1]:.4f}")
+    res.update({"evals": len(rounds), "held_evals": held,
+                "cut_at_round": None if out_at is None else rounds[out_at],
+                "ulp_off_leaves_at_round":
+                    None if ulp_at is None else rounds[ulp_at],
+                "graphs_differ_from_round":
+                    None if graphs_at is None else rounds[graphs_at],
+                "logit_gaps": gaps, "ulp_off_logit_gaps": ulp_gaps,
+                "held_max_abs_diff": worst, "mean_acc": hist.mean_acc,
+                "cpu_mean_acc": cpu_hist.mean_acc})
+    if out_at is None:
+        print(f"  {label}: held over all {held} evals")
+        return res
+    card_only, cpu_only = edges_apart(card_edges[out_at], cpu_edges[out_at])
+    print(f"  {label}: held over {held} of {len(rounds)} evals; round "
+          f"{rounds[out_at]} leaves the band (gap {gaps[out_at]:.3e}); "
+          f"edges there on the card only {card_only}, on the CPU only "
+          f"{cpu_only}")
+    print(f"  {label}: the CPU run from weights one ulp off leaves the band "
+          + ("at no eval" if ulp_at is None else f"at round {rounds[ulp_at]}"))
+    check(ulp_at is not None,
+          f"{label}: the card leaves the band at round {rounds[out_at]}, "
+          f"the CPU from weights one ulp off never does")
+    res.update({"cut_edges_card_only": card_only,
+                "cut_edges_cpu_only": cpu_only})
+    return res
+
+
+def async_join_twin(dev) -> dict:
+    """async_join on the card and on the CPU: every engine's
+    bookkeeping (times, server rounds, candidates; staleness rows;
+    uploads and fires) equal, their arrivals and triggers drawn by
+    numpy."""
+    from repro_torch.examples import async_join
+    card, res, fits = walk("async_join", lambda: async_join.run(device=dev))
+    res.update(hold_fits("async_join", fits,
+                         [r["engine"] for r in card.values()]))
+    t0 = time.perf_counter()
+    cpu = async_join.run(device="cpu")
+    res["cpu_twin_s"] = time.perf_counter() - t0
+    for key, mine in card.items():
+        theirs = cpu[key]
+        if key.startswith("staged"):
+            cols = [[(r[0], r[3], r[4]) for r in x["rows"]]
+                    for x in (mine, theirs)]
+        else:
+            cols = [[(r[0], *r[2:]) for r in x["rows"]]
+                    for x in (mine, theirs)]
+        check(cols[0] == cols[1],
+              f"async_join {key}: bookkeeping apart from the CPU's")
+        check((mine["n_uploads"], mine["n_triggers"])
+              == (theirs["n_uploads"], theirs["n_triggers"]),
+              f"async_join {key}: uploads or fires apart from the CPU's")
+        print(f"  async_join {key}: {len(cols[0])} rows, uploads "
+              f"{mine['n_uploads']}, fires {mine['n_triggers']}, equal to "
+              f"the CPU's; final accuracy card {mine['rows'][-1][1]:.4f}, "
+              f"CPU {theirs['rows'][-1][1]:.4f}")
+        res[key] = {"n_uploads": mine["n_uploads"],
+                    "n_triggers": mine["n_triggers"],
+                    "acc": mine["rows"][-1][1],
+                    "cpu_acc": theirs["rows"][-1][1]}
+    return res
+
+
+def train_and_serve_twin(dev) -> dict:
+    """train_and_serve on the card and on the CPU: per policy the
+    requests served and snapshots published equal; the latencies, timed
+    on the host, are printed, not compared."""
+    from repro_torch.examples import train_and_serve
+    card, res, fits = walk("train_and_serve",
+                           lambda: train_and_serve.run(device=dev))
+    res.update(hold_fits("train_and_serve", fits,
+                         [r["engine"] for r in card.values()]))
+    t0 = time.perf_counter()
+    cpu = train_and_serve.run(device="cpu")
+    res["cpu_twin_s"] = time.perf_counter() - t0
+    for policy, mine in card.items():
+        s, c = mine["summary"], cpu[policy]["summary"]
+        for key in ("n_served", "snapshots_published"):
+            check(s[key] == c[key],
+                  f"train_and_serve {policy}: {key} {s[key]} on the card, "
+                  f"{c[key]} on the CPU")
+        print(f"  [{CARD}] train_and_serve {policy}: served {s['n_served']}, "
+              f"snapshots {s['snapshots_published']} (the CPU's); latency "
+              f"p50 {s['latency_p50_s'] * 1e3:.2f} ms, p99 "
+              f"{s['latency_p99_s'] * 1e3:.2f} ms (CPU twin "
+              f"{c['latency_p50_s'] * 1e3:.2f}, "
+              f"{c['latency_p99_s'] * 1e3:.2f})")
+        res[policy] = {k: s[k] for k in (
+            "n_served", "snapshots_published", "latency_p50_s",
+            "latency_p99_s", "queue_depth_max", "staleness_mean")}
+    return res
+
+
+def walkthrough_phase(dev) -> dict:
+    """Phase 27: the five walkthroughs' ``run()`` on the card at the
+    reference's published sizes, each timed with its launches; quickstart
+    and the MLP train_sqmd_federation held to CPU twins (``held_twins``),
+    async_join's and train_and_serve's bookkeeping equal to the CPU's,
+    the ResNet federation's fits checked as the others', and serve_decode
+    on gemma3-1b reduced and at full width launching no kernel of the
+    port."""
+    from repro_torch.data import pad_like, sc_like
+    from repro_torch.examples import (quickstart, serve_decode,
+                                      train_sqmd_federation)
+    t_phase = time.perf_counter()
+    out = {"quickstart": held_twins(dev, "quickstart", quickstart,
+                                    pad_like)}
+    out["async_join"] = async_join_twin(dev)
+    out["train_and_serve"] = train_and_serve_twin(dev)
+    out["train_sqmd_federation"] = held_twins(
+        dev, "train_sqmd_federation", train_sqmd_federation, sc_like,
+        ckpt=str(WALK_DIR / "mlp"))
+    label = "train_sqmd_federation --resnet"
+    ckpt = WALK_DIR / "resnet"
+    res_out, res, fits = walk(label, lambda: train_sqmd_federation.run(
+        device=dev, resnet=True, ckpt=str(ckpt)))
+    res.update(hold_fits(label, fits, [res_out["engine"]]))
+    check(np.all(np.isfinite(res_out["history"].mean_acc))
+          and Path(res_out["checkpoint"]).stat().st_size > 0,
+          f"{label}: bad accuracy history or no checkpoint")
+    res["acc"] = res_out["acc"]
+    out[label] = res
+    for reduced in (True, False):
+        label = f"serve_decode gemma3-1b {'reduced' if reduced else 'full'}"
+        dec, res, fits = walk(label, lambda: serve_decode.run(
+            device=dev, reduced=reduced))
+        check(not fits and not any(res["launches"].values()),
+              f"{label}: a kernel of the port launched: {res['launches']}")
+        check(dec["tokens"].is_cuda and dec["generated"] == (4, 24),
+              f"{label}: token grid {dec['generated']} off the card or "
+              f"of another shape")
+        res.update(prefill_s=dec["prefill_s"], decode_s=dec["decode_s"])
+        out[label] = res
+    launches = {k: sum(r["launches"][k] for r in out.values())
+                for k in out["quickstart"]["launches"]}
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 27 wall time {wall:.1f} s")
+    return {"walkthroughs": out, "launches": launches, "wall_s": wall}
+
+
 # the dropless MoE path timed against another checkout (--moe-against):
 # phase 21's cuts (mixtral-8x7b 4 layers, deepseek-v2-236b 2) at the
 # published widths, bf16
@@ -5106,6 +5470,12 @@ def main() -> int:
                   + lm_training["routes"][f"{name}.tma"])
         launches[f"{name}_tma"] = hopper
         launches[name] = total - hopper
+
+    print("[27] the five walkthroughs (repro_torch.examples) on the card")
+    walkthroughs = walkthrough_phase(dev)
+    # and the walkthroughs' (none of the grouped product's: checked)
+    for name, n in walkthroughs["launches"].items():
+        launches[name] += n
     check(all(launches[name] > 0 for name in SOURCES),
           f"a kernel of the main path was launched no time: "
           f"{ {name: launches[name] for name in SOURCES} }")
@@ -5133,9 +5503,16 @@ def main() -> int:
          "lm_serving": lm_serving, "moe_serving": moe_serving,
          "lm_training": lm_training, "sharding": sharding,
          "analysis": analysis, "lm_dryrun": lm_dryrun,
-         "ragged_dot": ragged, "wall_s": time.perf_counter() - t_start},
+         "ragged_dot": ragged, "walkthroughs": walkthroughs,
+         "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"walkthroughs": {
+        "card": card, "wall_s": walkthroughs["wall_s"], "runs": {
+            label: {"wall_s": r["wall_s"], "cpu_twin_s": r.get("cpu_twin_s"),
+                    "launches": {k: v for k, v in r["launches"].items()
+                                 if v}}
+            for label, r in walkthroughs["walkthroughs"].items()}}}))
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,7 @@ from repro.data import make_splits as jax_make_splits
 from repro.data import pad_like as jax_pad_like
 from repro.models.mlp import hetero_mlp_zoo as jax_zoo
 from repro_torch.data import make_splits, pad_like
+from repro_torch.examples.async_join import join_rows, staleness_rows
 from repro_torch.models import hetero_mlp_zoo
 from test_torch_engine import LOGIT_TOL, _record_fires, _stack_test
 
@@ -321,6 +322,33 @@ def test_run_exercises_its_regime(runs):
                 "sync-straggler-local-steps-2"):
         assert teng.clients.step == 2 * (5 if name == "local-steps-2"
                                          else CFG["rounds"])
+
+
+def _acc_bound(tlogits, jlogits, n_test, clients):
+    """How far an accuracy averaged over ``clients`` may move when
+    predictions flip only at the near ties assert_parity allows: the
+    most flips any of them has, over the test shard's size."""
+    flips = (tlogits.argmax(-1) != jlogits.argmax(-1)).sum(-1)
+    return flips[clients].max(initial=0) / n_test + 1e-12
+
+
+def test_async_join_rows_match_reference(runs):
+    """async_join's report rows read off both Histories: times, server
+    rounds, candidates and staleness exactly; the overall and M1-only
+    accuracies up to the near-tie flips of the eval logits."""
+    jh, th = runs["jhist"], runs["thist"]
+    m1 = np.arange(N_FIX) % 3 == 0
+    n_test = len(runs["splits"][0].test_y)
+    everyone = np.ones(N_FIX, bool)
+    for t, j, tl, jl in zip(join_rows(th, m1), join_rows(jh, m1),
+                            runs["tlogits"], runs["jlogits"]):
+        assert (t[0], t[3], t[4]) == (j[0], j[3], j[4])
+        assert abs(t[1] - j[1]) <= _acc_bound(tl, jl, n_test, everyone)
+        assert abs(t[2] - j[2]) <= _acc_bound(tl, jl, n_test, m1)
+    for t, j in zip(staleness_rows(th), staleness_rows(jh)):
+        assert (t[0], *t[2:]) == (j[0], *j[2:])
+    assert len(join_rows(th, m1)) == len(staleness_rows(jh)) \
+        == len(jh.times)
 
 
 def test_async_rejects_the_round_interval():

@@ -185,6 +185,23 @@ def test_final_targets_match_reference(runs):
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=LOGIT_TOL)
 
 
+def test_quickstart_report_matches_reference(runs):
+    """The quickstart walkthrough's report read off both packages'
+    engines: the last graph's stats and the neighbor/cluster agreement
+    (the fixture's final W is the reference's, edge for edge)."""
+    from repro.core import graph_stats as jax_graph_stats
+    from repro_torch.core import graph_stats
+    from repro_torch.examples.quickstart import cluster_agreement
+    jeng, teng = runs["jeng"], runs["teng"]
+    cluster = pad_like(samples_per_client=30, ref_size=30,
+                       length=24).client_cluster
+    tstats = graph_stats(teng.last_graph)
+    assert tstats == pytest.approx(jax_graph_stats(jeng.last_graph))
+    assert tstats["n_candidates"] == 8 and tstats["out_degree"] == 4.0
+    assert cluster_agreement(teng.server.weights.numpy(), cluster) == \
+        cluster_agreement(np.asarray(jeng.server.weights), cluster)
+
+
 def _assert_slots_scatter_to_weights(fires):
     for g in fires:
         n, k = g.neighbors.shape
