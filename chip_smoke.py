@@ -171,8 +171,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     dropless MoE layer forward on the card launched ``ragged_dot`` 3
     times and no other kernel of the port launched (the dropless FFN
     wrapped to count its calls, ``DroplessCalls``); the bf16 forwards at
-    the published widths took ``ragged_dot``'s Hopper route (its counter
-    read);
+    the published widths took ``ragged_dot``'s Hopper route and every
+    fp32 twin forward its fp32 Hopper route (their counters read), the
+    twins' wall time printed;
 22. LM training (``repro_torch.launch.train``, ``make_train_step``): the
     ten reduced configs in fp32 (vectors nudged by numpy noise), 3 steps
     of Adam on warmup-cosine with clip 1.0 on the card and on the CPU
@@ -194,7 +195,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     peak memory; the only kernels of the port launched are the dropless
     MoE's grouped products: ``ragged_dot`` 3 a layer's forward (remat's
     recompute included) and 3 a backward, ``ragged_dot_wgrad`` 3 a
-    backward; the bf16 steps took both Hopper routes;
+    backward; the bf16 steps took both Hopper routes, the fp32 twins
+    both fp32 Hopper routes (3xTF32), and no published width the first;
 23. client-axis sharding (``repro_torch.sharding``), on meshes that
     repeat the one card (the engines' ``mesh=`` seam): phase 4's
     repository through the row-strip Eq. 2 rebuild on 1, 2 and 8 shards,
@@ -221,8 +223,8 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     of B1-B4's plain versions at phase 3's, 6's and 8's shapes, beside
     this run's bound of each (the grouped product's three entries at the
     launch rule's probe shapes too, 1, 7 and 160 groups, in fp32 on the
-    first route and in bf16 at the Hopper route's probe widths, K = 24
-    and N = 136, on that route);
+    first route, and at the Hopper routes' probe widths, K = 24 and N =
+    136, in bf16 on the Hopper route and in fp32 on the fp32 one);
 25. the LM dry run (``launch/dryrun.py``): qwen2-0.5b at full width on
     phase 22's step (bf16, Adam, batch 8 x seq 128) traced on a 1x1 mesh
     of fake card tensors against one real step on the card (argument
@@ -241,11 +243,13 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     ms beside its bound, the plain version's ms and the library's
     (``torch._grouped_mm`` where this torch takes the dtype and strides,
     else the per-expert cuBLAS loop), and the route each took: bf16 must
-    take the Hopper route (timed beside the first route on the same
-    inputs), fp32 the first; the edge cases at odd shapes,
-    all on the first route (one
-    group holding every row, empty groups and rows past the sum, 160
-    groups); one full-width dropless FFN's forward and backward of each
+    take the Hopper route, fp32 the fp32 Hopper route (3xTF32; the bound
+    at a third of the TF32 peak; its splits timed alone against their
+    plain versions), each timed beside the first route on the same
+    inputs and held there too; the edge cases at odd shapes, fp32 and
+    bf16, all on the first route (one group holding every row, empty
+    groups and rows past the sum, 160 groups), with the first route's
+    launches; one full-width dropless FFN's forward and backward of each
     MoE architecture under ``set_sync_debug_mode("error")``, and, not
     gated, whether a whole dropless prefill and train step are sync-free;
 27. the five walkthroughs (``repro_torch.examples``), each module's
@@ -257,7 +261,9 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     twin on the same ones (History bookkeeping equal, eval logits in
     phase 5's band up to the first eval that leaves it, if one does:
     that eval and the edges where the two graphs differ printed, and the
-    CPU's run from weights one fp32 ulp off must leave the band too);
+    CPU's run from weights one fp32 ulp off must leave the band too;
+    where the last graphs are equal, quickstart's ``graph_stats``
+    out_degree equal to the CPU's bit for bit);
     async_join (45 rounds, three engines), its times, server rounds,
     candidates, staleness rows, uploads and fires equal to its CPU
     twin's; train_and_serve (``until=24``, two admission policies), each
@@ -273,10 +279,14 @@ Phases, in order; any failure exits nonzero and no result line is printed:
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
-    its launches in phases 14-19, 23 and 27; the grouped product's four
-    kernels' from phases 21 and 22, the Hopper route's read off its
-    counters, their times from phase 26: bf16 for the Hopper route, fp32
-    for the first), then the
+    its launches in phases 14-19, 23 and 27; the grouped product's
+    Hopper routes' kernels from phases 21 and 22, read off their
+    counters; its first route is off the main path, no published width
+    reaching it: its launches 0 (the run fails otherwise), marked
+    ``"main_path": false``, its launches in phase 26's edges as
+    ``edge_launches``; their times from phase 26: bf16 for the Hopper
+    route, fp32 for the fp32 Hopper route and its splits and, on the
+    same inputs (``timed_on``), for the first route), then the
     last line
     ``{"ok": true, "device": {...}}``.
 
@@ -301,12 +311,22 @@ of phase 22's batch, host ms a call and one call's kernels and device
 ms under the profiler, then phase 26's nine bf16 grouped products alone,
 device ms each (``chiprun_out/moe_against.json``; no result line).
 
-    python3 chip_smoke.py --ragged-variants
+    python3 chip_smoke.py --fp32-memory-against OTHER_CHECKOUT
+
+measures, with another checkout's kernels and with this one's, in turns,
+the peak memory on the card of phase 22's fp32 twins of the dropless MoE
+and of one fp32 dropless FFN forward and backward of each MoE
+architecture at its published widths over phase 22's 8 x 128 tokens
+(``chiprun_out/fp32_memory.json``; no result line).
+
+    python3 chip_smoke.py --ragged-variants [fp32]
 
 times the grouped product's Hopper route at phase 26's nine bf16 rows
-beside copies of its source built without its products, without its
-loads and without its stores, to see which part holds each row
-(``chiprun_out/ragged_variants.json``; no result line).
+(with ``fp32``: its fp32 Hopper route at the nine fp32 rows) beside
+copies of its source built without its products, without its loads and
+without its stores (and for fp32 without the weight gradient's split),
+to see which part holds each row
+(``chiprun_out/ragged_variants[_fp32].json``; no result line).
 """
 from __future__ import annotations
 
@@ -2553,10 +2573,16 @@ def moe_serving_phase(dev) -> dict:
         out["cases"].append(lm_case(dev, arch, LM_PROMPT))
     ops.reset_launch_counts()
     DROPLESS.reset()
+    t0 = time.perf_counter()
     out["twins"] = {arch: moe_twin(dev, arch) for arch in MOE_CASES}
+    out["twins_s"] = time.perf_counter() - t0
     counts = ops.launch_counts()
-    print(f"  the MoE twins: {DROPLESS.hold('the MoE twins', counts)}")
+    print(f"  the MoE twins: {DROPLESS.hold('the MoE twins', counts)}; "
+          f"{out['twins_s']:.1f} s")
     check(DROPLESS.calls > 0, "the MoE twins ran no dropless forward")
+    check(ops.route_counts()["ragged_dot.tf32"] == counts["ragged_dot"],
+          f"the MoE twins' fp32 dropless forwards did not all take the fp32 "
+          f"Hopper route ({ops.route_counts()}, {counts})")
     out["launches"] = {name: n + sum(c["launches"][name]
                                      for c in out["cases"])
                        for name, n in counts.items()}
@@ -2667,6 +2693,9 @@ def train_twin(dev, arch: str, moe_path: str, remat: bool,
     batches = [next(it) for _ in range(TRAIN_TWIN_STEPS)]
     runs = {}
     for where, device in (("cpu", torch.device("cpu")), ("card", dev)):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         p = tree_map(lambda t: t.to(device), params)
         bs = [{n: v.to(device) for n, v in b.items()} for b in batches]
         opt = single_model(adam(warmup_cosine(TRAIN_TWIN_LR, 0,
@@ -2686,6 +2715,7 @@ def train_twin(dev, arch: str, moe_path: str, remat: bool,
         runs[where] = {"grads": [g.cpu() for g in grads],
                        "metrics": metrics, "on_device": on,
                        "routes": [r.cpu() for r in routes]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
     cpu, card = runs["cpu"], runs["card"]
     label = (f"{cfg.name} fp32 twin ({moe_path if cfg.is_moe else 'dense'}"
              f", remat={remat}, microbatches={microbatches})")
@@ -2712,10 +2742,10 @@ def train_twin(dev, arch: str, moe_path: str, remat: bool,
           f"within {ce:.2e} of the CPU's per step, gnorm {gnorm:.2e}, "
           f"first-step grads {grad:.2e}"
           + (f", all {decisions} routing decisions equal" if decisions
-             else ""))
+             else "") + f"; peak on the card {peak:.4f} GB")
     return {"label": label, "ce_rel": ce, "gnorm_rel": gnorm,
             "grad_rel": grad, "routing_decisions": decisions,
-            "ce": [m["ce"] for m in card["metrics"]]}
+            "ce": [m["ce"] for m in card["metrics"]], "peak_gb": peak}
 
 
 def train_bounds(params, tied: bool, tokens: int) -> dict:
@@ -2962,7 +2992,8 @@ def lm_training_phase(dev) -> dict:
     out["routes"] = ops.route_counts()
     check(all(out["routes"].values()),
           f"LM training: the bf16 dropless steps at the published widths "
-          f"did not take both Hopper routes ({out['routes']})")
+          f"and the fp32 twins did not take both Hopper routes of both "
+          f"grouped products ({out['routes']})")
     print(f"  LM training on the card: {out['moe']}")
     out["launches"] = counts
     return out
@@ -3985,40 +4016,48 @@ def probe_phase(dev) -> dict:
 
 
 def tma_probes(dev) -> dict:
-    """The grouped product's Hopper route at the launch rule's probe
-    shapes (bf16, M = PROBE_M rows, K = PROBE_TMA_K and N = PROBE_TMA_N,
+    """The grouped product's Hopper routes at the launch rule's probe
+    shapes (M = PROBE_M rows, K = PROBE_TMA_K and N = PROBE_TMA_N,
     multiples of 8 but of no tile; 1, 7 and 160 groups summing to 10 rows
-    short of M): the forward, the input gradient and the weight gradient,
-    each on that route (its counters read) and held to its plain version
-    with phase 26's bf16 rule."""
+    short of M), bf16 on the Hopper route and fp32 on the fp32 one: the
+    forward, the input gradient and the weight gradient, each on its
+    route (the counters read) and held to its plain version with phase
+    26's rule for its dtype."""
     from repro_torch.analysis import launch_rules as lr
     from repro_torch.kernels import ops
     m, k, n = lr.PROBE_M, lr.PROBE_TMA_K, lr.PROBE_TMA_N
     rng = np.random.default_rng(24)
     ops.reset_launch_counts()
-    worst = 0.0
+    worst = {}
     for g in lr.PROBE_GROUPS:
         sizes = torch.from_numpy(rng.multinomial(m - 10, np.ones(g) / g)
                                  .astype(np.int32)).to(dev)
-        lhs, rhs, dout = ragged_operands(m, k, n, g, torch.bfloat16, dev, g)
-        f32 = [t.float() for t in (lhs, rhs, dout)]
-        for entry, (kernel, plain) in ragged_calls(lhs, rhs, dout,
-                                                   sizes).items():
-            worst = max(worst, hold_ragged(
-                f"{entry} at a probe shape (G={g})", kernel(),
-                plain(*f32), torch.bfloat16))
+        for dtype in (torch.bfloat16, torch.float32):
+            lhs, rhs, dout = ragged_operands(m, k, n, g, dtype, dev, g)
+            f32 = [t.float() for t in (lhs, rhs, dout)]
+            key = str(dtype).split(".")[-1]
+            for entry, (kernel, plain) in ragged_calls(lhs, rhs, dout,
+                                                       sizes).items():
+                worst[key] = max(worst.get(key, 0.0), hold_ragged(
+                    f"{key} {entry} at a probe shape (G={g})", kernel(),
+                    plain(*f32), dtype))
     torch.cuda.synchronize()
     routes, counts = ops.route_counts(), ops.launch_counts()
-    n_probes = 3 * len(lr.PROBE_GROUPS)
-    check(routes["ragged_dot.tma"] == 2 * len(lr.PROBE_GROUPS)
-          and routes["ragged_dot_wgrad.tma"] == len(lr.PROBE_GROUPS)
+    groups = len(lr.PROBE_GROUPS)
+    want = {"ragged_dot.tma": 2 * groups, "ragged_dot_wgrad.tma": groups,
+            "ragged_dot.tf32": 2 * groups, "ragged_dot.tf32_split": 2 * groups,
+            "ragged_dot_wgrad.tf32": groups,
+            "ragged_dot_wgrad.tf32_split": groups}
+    n_probes = 6 * groups
+    check(routes == want
           and counts["ragged_dot"] + counts["ragged_dot_wgrad"] == n_probes,
-          f"the Hopper route's probes took another route: {routes}, "
+          f"the Hopper routes' probes took another route: {routes}, "
           f"{counts}")
-    print(f"  [{CARD}] the grouped product's Hopper route at (M, K, N) = "
-          f"({m}, {k}, {n}), G in {lr.PROBE_GROUPS}: {n_probes} launches "
-          f"({routes}) held to their plain versions, max |error| "
-          f"{worst:.3e}")
+    print(f"  [{CARD}] the grouped product's Hopper routes at (M, K, N) = "
+          f"({m}, {k}, {n}), G in {lr.PROBE_GROUPS}, bf16 and fp32: "
+          f"{n_probes} calls ({routes}) held to their plain versions, max "
+          f"|error| " + ", ".join(f"{name} {err:.3e}"
+                                   for name, err in worst.items()))
     return {"launches": routes, "max_abs_err": worst}
 
 
@@ -4315,8 +4354,10 @@ class DroplessCalls:
         routes = ops.route_counts()
         return (f"{self.calls} dropless MoE layer forwards, {self.backward} "
                 f"backwards: ragged_dot {got[0]} (Hopper route "
-                f"{routes['ragged_dot.tma']}), ragged_dot_wgrad {got[1]} "
-                f"(Hopper route {routes['ragged_dot_wgrad.tma']}) launches")
+                f"{routes['ragged_dot.tma']}, fp32 Hopper route "
+                f"{routes['ragged_dot.tf32']}), ragged_dot_wgrad {got[1]} "
+                f"(Hopper route {routes['ragged_dot_wgrad.tma']}, fp32 "
+                f"Hopper route {routes['ragged_dot_wgrad.tf32']}) launches")
 
 
 DROPLESS = DroplessCalls()
@@ -4404,35 +4445,80 @@ def grouped_mm_call(entry: str, lhs, rhs, dout, sizes, want32):
 
 
 def routed(kernel):
-    """(kernel's result, the route its grouped product took: "hopper" or
-    "first"), read off the Hopper route's counters around the call."""
+    """(kernel's result, the route its grouped product took: "hopper"
+    (bf16), "tf32" (fp32's Hopper route) or "first"), read off the routes'
+    counters around the call."""
     from repro_torch.kernels import ops
     before = ops.route_counts()
     got = kernel()
-    return got, "hopper" if ops.route_counts() != before else "first"
+    moved = {name.split(".")[1] for name, n in ops.route_counts().items()
+             if n != before[name]}
+    if "tma" in moved:
+        return got, "hopper"
+    return got, "tf32" if moved else "first"
 
 
 @contextlib.contextmanager
 def first_route():
     """Inside the block every grouped product takes the first route, to
-    time it beside the Hopper route on the same inputs."""
+    time it beside the Hopper routes on the same inputs."""
     from repro_torch.kernels import ragged_dot as rd
-    keep = rd.takes_tma
-    rd.takes_tma = lambda *args: False
+    keep = rd.takes_tma, rd.takes_tf32
+    rd.takes_tma = rd.takes_tf32 = lambda *args: False
     try:
         yield
     finally:
-        rd.takes_tma = keep
+        rd.takes_tma, rd.takes_tf32 = keep
+
+
+def tf32_split_row(entry: str, lhs, dout, sizes, iters: int) -> dict:
+    """The fp32 Hopper route's split before ``entry``'s product, alone:
+    the forward's split of lhs (or of the output gradient, the input
+    gradient's lhs) and the weight gradient's transposing split of lhs
+    and grad, against their plain versions (equal bit for bit: the same
+    roundings), device ms beside the bytes bound (each input read once,
+    the planes written once) and the plain version's ms."""
+    from repro_torch.kernels import ragged_dot as rd
+    from repro_torch.kernels import ref
+    m = lhs.shape[0]
+    if entry == "wgrad":
+        mp = rd.tf32_m_pad(m, sizes.shape[0])
+        _, tile = rd.tf32_wgrad_tables(sizes.tolist(), m)
+        used = rd.TF32_TN * tile[-2]            # the groups' columns
+        kernel = lambda: rd.tf32_wgrad_split(lhs, dout, sizes)
+        plain = lambda: (ref.ragged_dot_wgrad_tf32_split_ref(lhs, sizes, mp),
+                         ref.ragged_dot_wgrad_tf32_split_ref(dout, sizes, mp))
+        got, want = kernel(), plain()
+        err = max(float((a[..., :used] - b[..., :used]).abs().max())
+                  for a, b in zip(got, want))
+        nbytes = 4.0 * (lhs.numel() + dout.numel()) + 4.0 * 2 * used * (
+            lhs.shape[1] + dout.shape[1])
+    else:
+        x = dout if entry == "input_grad" else lhs
+        kp = rd.tf32_k_pad(x.shape[1])
+        kernel = lambda: rd.tf32_split(x)
+        plain = lambda: ref.pairwise_kl_split_ref(x.unsqueeze(-1), False,
+                                                  kp)[0]
+        err = float((kernel() - plain()).abs().max())
+        nbytes = 4.0 * x.numel() + 4.0 * 2 * m * kp
+    check(err == 0.0, f"the fp32 route's {entry} split is {err:.3e} off its "
+                      f"plain version")
+    torch.cuda.synchronize()
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    dms = device_ms(kernel, iters)
+    return {"max_abs_err": err, "ms": dms,
+            "plain_ms": cuda_ms(plain, 3, warmup=1), "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "bytes": nbytes}
 
 
 def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
                 g: int, dtype) -> dict:
     """The three entries at one case's shapes in one dtype: each against
     its plain version, timed (device and back-to-back ms), beside its
-    bound, the plain version's time and the library yardstick's. bf16
-    at these published widths must take the Hopper route (fails the
-    phase otherwise), timed beside the first route on the same inputs;
-    fp32 must take the first."""
+    bound, the plain version's time and the library yardstick's. At these
+    published widths bf16 must take the Hopper route and fp32 the fp32
+    Hopper route (3xTF32; its splits also timed alone), or the phase
+    fails; each is timed beside the first route on the same inputs."""
     rng = np.random.default_rng(26)
     m = tokens * top_k
     sizes_np = routed_sizes(tokens, top_k, g, rng)
@@ -4440,15 +4526,17 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
     lhs, rhs, dout = ragged_operands(m, d, f, g, dtype, dev, 26)
     calls = ragged_calls(lhs, rhs, dout, sizes)
     f32 = [t.float() for t in (lhs, rhs, dout)]
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    # fp32 runs as three TF32 products (B1's row, phase 3)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+        else PEAK_TF32_FLOPS / 3
     size = lhs.element_size()
-    iters = 10 if dtype == torch.bfloat16 else 3
+    iters = 10 if dtype == torch.bfloat16 else 5
     out = {"rows": m, "groups": g, "group_sizes": sizes_np.tolist(),
            "dtype": str(dtype).split(".")[-1]}
     for entry, (kernel, plain) in calls.items():
         name = f"{label} {out['dtype']} {entry}"
         got, route = routed(kernel)
-        want = "hopper" if dtype == torch.bfloat16 else "first"
+        want = "hopper" if dtype == torch.bfloat16 else "tf32"
         check(route == want, f"{name}: took the {route} route, not the "
                              f"{want}")
         want32 = plain(*f32)
@@ -4460,10 +4548,11 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
         del want32
         ms = cuda_ms(kernel, iters)
         dms = device_ms(kernel, iters)
-        first_ms = None
-        if route == "hopper":
-            with first_route():
-                first_ms = device_ms(kernel, iters)
+        with first_route():
+            first_err = hold_ragged(f"{name} (first route)", kernel(),
+                                    plain(*f32), dtype)
+            first_ms = device_ms(kernel, 10 if dtype == torch.bfloat16
+                                 else 3)
         plain_ms = cuda_ms(lambda: plain(lhs, rhs, dout), 3, warmup=1)
         if lib is None:                  # the per-expert loop it replaces
             lib_ms = plain_ms
@@ -4481,23 +4570,40 @@ def ragged_case(dev, label: str, tokens: int, top_k: int, d: int, f: int,
         bound_ms = max(nbytes / PEAK_BYTES, flops / peak) * 1e3
         bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / peak \
             else "operations"
+        # the first route's: fp32 on IEEE FFMA, bf16 on the tensor cores
+        first_peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+            else PEAK_FP32_FLOPS
+        first_bound = max(nbytes / PEAK_BYTES, flops / first_peak) * 1e3
+        first_by = "bytes" if nbytes / PEAK_BYTES >= flops / first_peak \
+            else "operations"
         print(f"  [{CARD}] {name} (M={m}, K={d if entry != 'input_grad' else f}"
               f", N={f if entry != 'input_grad' else d}, G={g}), {route} "
               f"route: max |error| "
               f"{err:.3e} (plain version on these values {plain_err:.3e}); "
               f"device {dms:.4f} ms, back to back {ms:.4f} ms"
-              + (f" (the first route on these inputs: device "
-                 f"{first_ms:.4f} ms)" if first_ms is not None else "")
-              + f"; bound "
+              f" (the first route on these inputs: device "
+              f"{first_ms:.4f} ms); bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e9:.3f} GB, "
               f"{flops / 1e9:.1f} GFLOP; {bound_ms / dms:.1%}); plain "
               f"{plain_ms:.4f} ms; library {lib_ms:.4f} ms back to back "
               f"[{lib_what}]")
         out[entry] = {"max_abs_err": err, "plain_max_abs_err": plain_err,
                       "route": route, "first_route_ms": first_ms,
+                      "first_route_max_abs_err": first_err,
+                      "first_route_bound_ms": first_bound,
+                      "first_route_bound_by": first_by,
                       "ms": dms, "back_to_back_ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "library": lib_what, "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        if route == "tf32":
+            split = out[entry]["split"] = tf32_split_row(entry, lhs, dout,
+                                                         sizes, iters)
+            print(f"  [{CARD}] {name}: its split alone device "
+                  f"{split['ms']:.4f} ms, bound {split['bound_ms']:.4f} ms "
+                  f"(bytes: {split['bytes'] / 1e9:.3f} GB; "
+                  f"{split['bound_ms'] / split['ms']:.1%}), plain "
+                  f"{split['plain_ms']:.4f} ms, equal to the plain version "
+                  f"bit for bit")
     del lhs, rhs, dout, f32, calls
     torch.cuda.empty_cache()
     return out
@@ -4507,10 +4613,16 @@ def ragged_edges(dev) -> dict:
     """The three entries at RAGGED_EDGE's odd shapes, fp32 and bf16, with
     one group holding every row, empty groups and rows past the sum, and
     160 groups: each against its plain version; the rows past the sum and
-    the empty groups' weight gradients 0."""
+    the empty groups' weight gradients 0. All take the first route; its
+    launches here (the counts set to 0 just before) are the summary
+    line's ``edge_launches``, not main-path launches: no published width
+    reaches the first route."""
+    from repro_torch.kernels import ops
     m, k, n = RAGGED_EDGE
     rng = np.random.default_rng(27)
     worst = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
     for kind in ("one group holds every row",
                  "empty groups, 40 rows past the sum", "160 groups"):
         sizes_np = edge_sizes(kind, m, rng)
@@ -4536,14 +4648,22 @@ def ragged_edges(dev) -> dict:
                           f"{name}: a row past the groups is not 0")
                 key = str(dtype).split(".")[-1]
                 worst[key] = max(worst.get(key, 0.0), err)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(not any(ops.route_counts().values()),
+          f"the edges took a Hopper route: {ops.route_counts()}")
     print(f"  [{CARD}] edge cases at (M, K, N) = {RAGGED_EDGE}, all on the "
           f"first route: one group "
           f"holding every row, empty groups and 40 rows past the sum, 160 "
           f"groups; forward, input gradient and weight gradient held to "
           f"their plain versions, rows past the sum and empty groups' "
           f"gradients 0; max |error| "
-          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
-    return worst
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f"; launches ragged_dot {launches['ragged_dot']}, "
+            f"ragged_dot_wgrad {launches['ragged_dot_wgrad']}")
+    return {"max_abs_err": worst,
+            "launches": {name: launches[name]
+                         for name in ("ragged_dot", "ragged_dot_wgrad")}}
 
 
 def sync_frame(err: BaseException) -> str:
@@ -4864,6 +4984,14 @@ def held_twins(dev, label: str, module, dataset, **kw) -> dict:
           + ("no eval" if graphs_at is None else f"round {rounds[graphs_at]}")
           + f"; mean accuracy card {hist.mean_acc[-1]:.4f}, CPU "
           f"{cpu_hist.mean_acc[-1]:.4f}")
+    if "graph_stats" in card and np.array_equal(card_edges[-1],
+                                                cpu_edges[-1]):
+        # the same last graph: the same degrees, to the bit
+        got, want = (r["graph_stats"]["out_degree"] for r in (card, cpu))
+        check(got == want, f"{label}: graph_stats' out_degree {got!r} on "
+                           f"the card, {want!r} on the CPU")
+        print(f"  {label}: graph_stats' out_degree {got!r}, the CPU's "
+              f"{want!r}")
     res.update({"evals": len(rounds), "held_evals": held,
                 "cut_at_round": None if out_at is None else rounds[out_at],
                 "ulp_off_leaves_at_round":
@@ -5116,27 +5244,115 @@ def moe_against(other: Path) -> int:
     return 0
 
 
+def fp32_memory(src: str) -> dict:
+    """With the ``repro_torch`` of ``src``: peak allocated GB on the card
+    of phase 22's fp32 twins of the dropless MoE (``train_twin``, held to
+    the CPU as there) and of one fp32 dropless FFN's forward and backward
+    of each MoE architecture at its published widths over phase 22's
+    batch (8 x 128 tokens), with the allocation before it and the
+    grouped product's Hopper-route launches."""
+    sys.path.insert(0, src)
+    from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import Init
+    from repro_torch.models.ffn import init_moe, moe_dropless_forward
+    global CARD
+    CARD = smi("name,power.limit")
+    dev = torch.device("cuda")
+    out = {"src": src, "card": CARD, "twins": {}, "ffn": {}}
+    for arch in ARCH_IDS:
+        if get_reduced(arch).is_moe:
+            for remat in (False, True):
+                row = train_twin(dev, arch, "dropless", remat, 1)
+                out["twins"][row["label"]] = row["peak_gb"]
+    for arch in MOE_CASES:
+        cfg = dataclasses.replace(get_config(arch),
+                                  param_dtype=torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(29)
+        p = init_moe(Init(None, dev, gen), cfg)
+        for v in p.values():
+            if isinstance(v, torch.Tensor):
+                v.requires_grad_()
+        x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                        device=dev) * 0.5
+        x.requires_grad_()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, aux = moe_dropless_forward(p, cfg, x)
+        (y.square().mean() + aux).backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["ffn"][arch] = {
+            "before_gb": base / 1e9, "peak_gb": peak / 1e9,
+            "above_gb": (peak - base) / 1e9,
+            "routes": {k: v for k, v in ops.route_counts().items() if v}}
+        del p, x, y, aux
+        torch.cuda.empty_cache()
+    return out
+
+
+def fp32_memory_against(other: Path) -> int:
+    """``fp32_memory`` of another checkout (e.g. the parent commit,
+    unpacked with git archive) and of this one, one process each, in
+    turns: other, this, this, other. Prints the peaks; they also go to
+    ``chiprun_out/fp32_memory.json``."""
+    runs = []
+    for label, tree in (("other", other), ("this", ROOT), ("this", ROOT),
+                        ("other", other)):
+        res = subprocess.run([sys.executable, __file__, "--fp32-memory",
+                              str(tree / "src")], capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-5000:], file=sys.stderr)
+            return 1
+        row = json.loads(res.stdout.strip().splitlines()[-1])
+        row["label"] = label
+        runs.append(row)
+        for name, gb in row["twins"].items():
+            print(f"  [{row['card']}] {label:5s} {name}: peak {gb:.4f} GB")
+        for arch, r in row["ffn"].items():
+            print(f"  [{row['card']}] {label:5s} {arch} fp32 dropless FFN "
+                  f"forward and backward over {TRAIN_BATCH} x {TRAIN_SEQ} "
+                  f"tokens: peak {r['peak_gb']:.4f} GB, "
+                  f"{r['above_gb']:.4f} above the {r['before_gb']:.4f} "
+                  f"allocated before; Hopper-route launches {r['routes']}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "fp32_memory.json").write_text(json.dumps(runs, indent=2))
+    return 0
+
+
 # the Hopper route of the grouped product with one part taken out, to see
-# which part holds it (--ragged-variants): (name, the line of
-# csrc/ragged_dot.cu replaced, its replacement)
+# which part holds it (--ragged-variants): (name, (the text of
+# csrc/ragged_dot.cu replaced, its replacement), ...)
 RAGGED_VARIANTS = (
     ("no products",
-     "    wgmma_m64n256k16<TA, TB>(acc, da, db, (first && kk == 0) ? 0 : 1);\n",
-     ""),
-    ("no loads", "bar_expect(&full[slot], bytes);",
-     "bar_expect(&full[slot], 0);"),
-    ("no stores", "      if (row < rend && col < cols)\n",
-     "      if (row < 0)\n"))
+     (("    wgmma_m64n256k16<TA, TB>(acc, da, db, (first && kk == 0) ? 0 : "
+       "1);\n", ""),)),
+    ("no loads", (("bar_expect(&full[slot], bytes);",
+                   "bar_expect(&full[slot], 0);"),)),
+    ("no stores", (("      if (row < rend && col < cols)\n",
+                    "      if (row < 0)\n"),)))
+# the same for the fp32 Hopper route (--ragged-variants fp32): each copy
+# is csrc/ragged_dot_tf32.cu built with one of its diagnostic macros
+# defined; "no split" is the weight gradient on whatever the planes hold
+TF32_VARIANTS = (("no products", "RAGGED_TF32_NO_PRODUCTS"),
+                 ("no loads", "RAGGED_TF32_NO_LOADS"),
+                 ("no stores", "RAGGED_TF32_NO_STORES"),
+                 ("no split", "RAGGED_TF32_NO_SPLIT"))
 
 
-def ragged_variants() -> int:
-    """The Hopper route at phase 26's nine bf16 rows, device ms, beside
-    copies of csrc/ragged_dot.cu built without its products (loads and
-    ring only), without its loads (products on whatever the ring holds)
-    and without its stores, in turns (the tree's, each copy, the tree's);
-    a dense cuBLAS product of mixtral's whole train batch for scale.
-    Prints the times; they also go to ``chiprun_out/ragged_variants.json``
-    (no result line)."""
+def ragged_variants(dtype=torch.bfloat16) -> int:
+    """A Hopper route at phase 26's nine rows, device ms, beside copies of
+    its source built without its products (loads and ring only), without
+    its loads (products on whatever the ring holds) and without its
+    stores (for fp32 also without the weight gradient's split), in turns
+    (the tree's, each copy, the tree's): bf16's (csrc/ragged_dot.cu) or
+    fp32's (csrc/ragged_dot_tf32.cu); a dense cuBLAS product of mixtral's
+    whole train batch for scale. Prints the times; they also go to
+    ``chiprun_out/ragged_variants[_fp32].json`` (no result line)."""
     import ctypes
     import re
     sys.path.insert(0, str(ROOT / "src"))
@@ -5144,29 +5360,39 @@ def ragged_variants() -> int:
     global CARD
     CARD = smi("name,power.limit")
     build.build_all()
-    src = (build.CSRC / "ragged_dot.cu").read_text()
-    out_dir = build.BUILD_DIR / "variants"
+    fp32 = dtype == torch.float32
+    source = "ragged_dot_tf32" if fp32 else "ragged_dot"
+    src = (build.CSRC / f"{source}.cu").read_text()
+    out_dir = build.BUILD_DIR / f"variants_{source}"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, old, new in RAGGED_VARIANTS:
-        text = src.replace(old, new)
-        if name == "no loads":       # and no TMA issued
-            text = re.sub(r"(?m)^(\s+)tma_load\(", r"\1if (0) tma_load(", text)
-        check(text != src, f"{name}: csrc/ragged_dot.cu has no such line")
-        cu = out_dir / f"{name.replace(' ', '_')}.cu"
-        cu.write_text(text)
+    for name, edits in (TF32_VARIANTS if fp32 else RAGGED_VARIANTS):
+        so = out_dir / f"{name.replace(' ', '_')}.so"
+        if fp32:
+            cmd = [f"-D{edits}", "-o", str(so),
+                   str(build.CSRC / f"{source}.cu")]
+        else:
+            text = src
+            for old, new in edits:
+                check(old in text, f"{name}: csrc/{source}.cu has no {old!r}")
+                text = text.replace(old, new)
+            if name == "no loads":       # and no TMA issued
+                text = re.sub(r"(?m)^(\s+)tma_load\(", r"\1if (0) tma_load(",
+                              text)
+            cu = so.with_suffix(".cu")
+            cu.write_text(text)
+            cmd = ["-o", str(so), str(cu)]
         procs[name] = subprocess.Popen(
-            [build.nvcc(), *build.FLAGS, "-o", str(cu.with_suffix(".so")),
-             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
-    libs = {"tree": build.load("ragged_dot")}
+            [build.nvcc(), *build.FLAGS, *cmd], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    libs = {"tree": build.load(source)}
     for name, proc in procs.items():
         _, err = proc.communicate()
         check(proc.returncode == 0, f"{name}: nvcc failed: {err[-2000:]}")
         libs[name] = ctypes.CDLL(str(out_dir / f"{name.replace(' ', '_')}.so"))
 
     def use(name):
-        build._libs["ragged_dot"] = libs[name]
+        build._libs[source] = libs[name]
         build._entries.clear()
 
     dev = torch.device("cuda")
@@ -5175,13 +5401,14 @@ def ragged_variants() -> int:
         rng = np.random.default_rng(26)
         m = tokens * top_k
         sizes = torch.from_numpy(routed_sizes(tokens, top_k, g, rng)).to(dev)
-        lhs, rhs, dout = ragged_operands(m, d, f, g, torch.bfloat16, dev, 26)
+        lhs, rhs, dout = ragged_operands(m, d, f, g, dtype, dev, 26)
         for entry, (kernel, _) in ragged_calls(lhs, rhs, dout,
                                                sizes).items():
             row = {}
             for name in ("tree", *procs, "tree"):
                 use(name)
-                row.setdefault(name, []).append(device_ms(kernel, 10))
+                row.setdefault(name, []).append(
+                    device_ms(kernel, 5 if fp32 else 10))
             rows[f"{label} {entry}"] = row
             print(f"  [{CARD}] {label} {entry} (M={m}) device ms: "
                   + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in v)
@@ -5189,16 +5416,16 @@ def ragged_variants() -> int:
         if m == max(t * k for _, t, k, *_ in RAGGED_CASES):
             dense = device_ms(lambda: lhs @ rhs[0], 10)
             rows["dense cuBLAS"] = {"ms": dense, "shape": [m, d, f]}
-            print(f"  [{CARD}] dense cuBLAS ({m}, {d}) @ ({d}, {f}) bf16: "
-                  f"{dense:.4f} ms, {2 * m * d * f / dense / 1e9:.0f} "
-                  f"TFLOP/s")
+            print(f"  [{CARD}] dense cuBLAS ({m}, {d}) @ ({d}, {f}) "
+                  f"{str(dtype).split('.')[-1]}: {dense:.4f} ms, "
+                  f"{2 * m * d * f / dense / 1e9:.0f} TFLOP/s")
         del lhs, rhs, dout
         torch.cuda.empty_cache()
     use("tree")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "ragged_variants.json").write_text(json.dumps(
-        {"card": CARD, "rows": rows}, indent=2))
+    (out / f"ragged_variants{'_fp32' if fp32 else ''}.json").write_text(
+        json.dumps({"card": CARD, "rows": rows}, indent=2))
     return 0
 
 
@@ -5238,6 +5465,19 @@ SOURCES = {
                        "src/repro/models/ffn.py:151"),
     "ragged_dot_wgrad_tma": ("src/repro_torch/kernels/csrc/ragged_dot.cu",
                              "src/repro/models/ffn.py:151"),
+    # and the fp32 Hopper route (fp32 at K, N multiples of 4: 3xTF32 on
+    # wgmma): the forward's split of lhs (B1's split pass, counted on
+    # this route) and its product, the weight gradient's transposing split
+    # and its product
+    "ragged_dot_tf32_split": ("src/repro_torch/kernels/csrc/pairwise_kl.cu",
+                              "src/repro/models/ffn.py:151"),
+    "ragged_dot_tf32": ("src/repro_torch/kernels/csrc/ragged_dot_tf32.cu",
+                        "src/repro/models/ffn.py:151"),
+    "ragged_dot_wgrad_tf32_split": (
+        "src/repro_torch/kernels/csrc/ragged_dot_tf32.cu",
+        "src/repro/models/ffn.py:151"),
+    "ragged_dot_wgrad_tf32": ("src/repro_torch/kernels/csrc/ragged_dot_tf32.cu",
+                              "src/repro/models/ffn.py:151"),
 }
 # the kernels each federation must launch (the dense Eq. 5 entry is on
 # neither: both SQMD graphs carry their neighbor lists)
@@ -5293,8 +5533,15 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--moe-against":
         return moe_against(Path(sys.argv[2]).resolve())
+    if len(sys.argv) == 3 and sys.argv[1] == "--fp32-memory":
+        print(json.dumps(fp32_memory(sys.argv[2])))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--fp32-memory-against":
+        return fp32_memory_against(Path(sys.argv[2]).resolve())
     if len(sys.argv) == 2 and sys.argv[1] == "--ragged-variants":
         return ragged_variants()
+    if sys.argv[1:] == ["--ragged-variants", "fp32"]:
+        return ragged_variants(torch.float32)
     if len(sys.argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -5452,32 +5699,65 @@ def main() -> int:
           "their plain versions at the MoE widths, the edges, sync-free")
     ragged = ragged_phase(dev)
     # the grouped product's rows: mixtral-8x7b's prefill forward and its
-    # train batch's weight gradient, bf16 on the Hopper route and fp32 on
-    # the first; their launches from the MoE paths' runs, phases 21
-    # (serving: forwards) and 22 (training), the Hopper route's read off
-    # its counters (the bf16 runs at the published widths), the first
-    # route's the rest (the fp32 twins)
-    for name, case, entry in (
-            ("ragged_dot_tma", "mixtral-8x7b prefill bfloat16", "forward"),
-            ("ragged_dot_wgrad_tma", "mixtral-8x7b train bfloat16", "wgrad"),
-            ("ragged_dot", "mixtral-8x7b prefill float32", "forward"),
-            ("ragged_dot_wgrad", "mixtral-8x7b train float32", "wgrad")):
-        rows[name] = ragged["cases"][case][entry]
+    # train batch's weight gradient, bf16 on the Hopper route, fp32 on
+    # the fp32 Hopper route (its splits timed alone), the first route on
+    # the fp32 inputs; their launches from the MoE paths' runs, phases 21
+    # (serving: forwards) and 22 (training), each Hopper route's read off
+    # its counters (bf16 at the published widths, the fp32 twins). No
+    # published width reaches the first route: its main-path launches
+    # are 0 (checked), it is off the main path, and its launches in
+    # phase 26's edges at odd widths are a field of their own
+    cases = ragged["cases"]
+    prefill = cases["mixtral-8x7b prefill float32"]["forward"]
+    train = cases["mixtral-8x7b train float32"]["wgrad"]
+    for name, row in (
+            ("ragged_dot_tma",
+             cases["mixtral-8x7b prefill bfloat16"]["forward"]),
+            ("ragged_dot_wgrad_tma",
+             cases["mixtral-8x7b train bfloat16"]["wgrad"]),
+            ("ragged_dot_tf32", prefill), ("ragged_dot_wgrad_tf32", train),
+            ("ragged_dot_tf32_split", prefill["split"]),
+            ("ragged_dot_wgrad_tf32_split", train["split"])):
+        rows[name] = row
+    for name, row, inputs in (
+            ("ragged_dot", prefill, "mixtral-8x7b prefill float32 forward"),
+            ("ragged_dot_wgrad", train,
+             "mixtral-8x7b train float32 wgrad")):
+        rows[name] = {"ms": row["first_route_ms"],
+                      "max_abs_err": row["first_route_max_abs_err"],
+                      "plain_ms": row["plain_ms"],
+                      "library_ms": row["library_ms"],
+                      "bound_ms": row["first_route_bound_ms"],
+                      "bound_by": row["first_route_bound_by"],
+                      "main_path": False, "timed_on": inputs,
+                      "edge_launches": ragged["edges"]["launches"][name]}
     for name in ("ragged_dot", "ragged_dot_wgrad"):
         total = (moe_serving["launches"][name]
                  + lm_training["launches"][name])
-        hopper = (moe_serving["routes"][f"{name}.tma"]
-                  + lm_training["routes"][f"{name}.tma"])
-        launches[f"{name}_tma"] = hopper
-        launches[name] = total - hopper
+        route = {r: (moe_serving["routes"][f"{name}.{r}"]
+                     + lm_training["routes"][f"{name}.{r}"])
+                 for r in ("tma", "tf32", "tf32_split")}
+        launches[f"{name}_tma"] = route["tma"]
+        launches[f"{name}_tf32"] = route["tf32"]
+        launches[f"{name}_tf32_split"] = route["tf32_split"]
+        launches[name] += total - route["tma"] - route["tf32"]
+        check(launches[name] == 0,
+              f"{name}: the main path launched the first route "
+              f"{launches[name]} times at published widths")
 
     print("[27] the five walkthroughs (repro_torch.examples) on the card")
     walkthroughs = walkthrough_phase(dev)
     # and the walkthroughs' (none of the grouped product's: checked)
     for name, n in walkthroughs["launches"].items():
         launches[name] += n
-    check(all(launches[name] > 0 for name in SOURCES),
+    main_path = [name for name in SOURCES
+                 if rows[name].get("main_path", True)]
+    check(all(launches[name] > 0 for name in main_path),
           f"a kernel of the main path was launched no time: "
+          f"{ {name: launches[name] for name in main_path} }")
+    check(not any(launches[name] for name in SOURCES
+                  if name not in main_path),
+          f"the first route ran on the main path: "
           f"{ {name: launches[name] for name in SOURCES} }")
     summary = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -5487,7 +5767,10 @@ def main() -> int:
          "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound_ms"],
          "bound_by": rows[name]["bound_by"],
-         "library_ms": rows[name]["library_ms"]}
+         "library_ms": rows[name]["library_ms"],
+         **{key: rows[name][key] for key in ("main_path", "timed_on",
+                                             "edge_launches")
+            if key in rows[name]}}
         for name in SOURCES]}
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -15,8 +15,8 @@ of any tile, the rule holds each geometry to four things:
   * dynamic shared memory fits the 227 KB a block may take, and the
     block and grid fit the card's limits,
   * every global stride of a ``CUtensorMap`` operand (the 3xTF32 GEMM's
-    planes, the grouped product's Hopper route's operands) is a multiple
-    of 16 bytes.
+    planes, the grouped product's Hopper routes' operands and planes) is
+    a multiple of 16 bytes.
 
 The geometry is pure Python, so the rule runs on the CPU. ``chip_smoke``
 launches each kernel at the same probe shapes on the card and holds it
@@ -42,8 +42,9 @@ PROBE_THIN = (1, 2, 3, 5, 9, 13, 16)
 PROBE_MANY = (1031, 100_003)
 PROBE_BLOCKS_PER_SM = (1, 8)
 # the grouped product's group counts: one, a few, deepseek-v2-236b's 160;
-# its Hopper route's widths, K and N multiples of 8 as that route takes
-# them but of no tile (64 deep, 128 x 256)
+# its Hopper routes' widths, K and N multiples of 8 as the bf16 route
+# takes them (and of 4, as the fp32 one does) but of no tile (64 or 32
+# deep, 128 x 256 or 128 x 128)
 PROBE_GROUPS = (1, 7, 160)
 PROBE_TMA_K, PROBE_TMA_N = 24, 136
 
@@ -99,6 +100,18 @@ def probe_geometries(sms: int = H100_SMS) -> List[Tuple[str, Geometry]]:
                  rd.tma_geometry(m, tn, tk, g, True, sms)),
                 (f"M={m},K={tk},N={tn},G={g}",
                  rd.tma_wgrad_geometry(m, tk, tn, g, sms))]
+    # its fp32 Hopper route at the same widths (multiples of 4, as that
+    # route takes them): the two products and the weight gradient's
+    # transposing split (the forward's split is B1's, probed above)
+    for g in PROBE_GROUPS:
+        out += [(f"M={m},K={tk},N={tn},G={g}",
+                 rd.tf32_geometry(m, tk, tn, g, False, sms)),
+                (f"M={m},K={tn},N={tk},G={g},rhs^T",
+                 rd.tf32_geometry(m, tn, tk, g, True, sms)),
+                (f"M={m},K={tk},N={tn},G={g}",
+                 rd.tf32_wgrad_split_geometry(m, tk, tn, g)),
+                (f"M={m},K={tk},N={tn},G={g}",
+                 rd.tf32_wgrad_geometry(m, tk, tn, g, sms))]
     for t in PROBE_THIN:
         for many in PROBE_MANY:
             for per_sm in PROBE_BLOCKS_PER_SM:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.quality import BIG
@@ -176,13 +177,23 @@ def ddist_graph(generator: torch.Generator, n: int, k: int,
         candidates=active, slot_weights=vals)
 
 
+def _mean_as_jnp(total: int, count: int) -> float:
+    """The mean of ``count`` integers summing to ``total`` as the
+    reference's ``jnp.mean`` reads it: the fp32 sum times the fp32
+    reciprocal of the count (XLA turns the division by a constant into
+    that product), e.g. 6.000000476837158 for 28 rows of 6. On the host,
+    so the card and the CPU read the same bits (torch.mean read 6.0 on
+    the CPU and 6.000000476837158 on the card)."""
+    return float(np.float32(total) * (np.float32(1) / np.float32(count)))
+
+
 def graph_stats(g: CollaborationGraph) -> dict:
     """Diagnostics: degree distribution and reciprocity of the edges."""
     adj = g.weights > 0
     in_deg = adj.sum(dim=0)
     recip = (adj & adj.T).sum() / torch.clamp(adj.sum(), min=1)
     return {
-        "out_degree": float(adj.sum(dim=1).float().mean()),
+        "out_degree": _mean_as_jnp(int(adj.sum()), adj.shape[0]),
         "in_degree_max": int(in_deg.max()),
         "in_degree_min": int(in_deg.min()),
         "reciprocity": float(recip),

@@ -30,7 +30,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("pairwise_kl", "soft_ce", "neighbor_mean", "neighbor_gather",
-           "dequant_kl", "ragged_dot")
+           "dequant_kl", "ragged_dot", "ragged_dot_tf32")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -11,7 +11,7 @@
 //
 // lhs's rows are sorted by group; sizes (G,) int32 on the device. fp32 or
 // bf16 in, the output in the same type; sums in fp32, one rounding at the
-// end. fp32 runs on IEEE FFMA (never TF32), bf16 on the tensor cores.
+// end. Here fp32 runs on IEEE FFMA (never TF32), bf16 on the tensor cores.
 //
 // Replaces: no Pallas kernel. jax.lax.ragged_dot is one XLA op in the
 // reference (src/repro/models/ffn.py:133-160, moe_dropless_forward); the
@@ -26,8 +26,15 @@
 // (~0.06 ms at the bf16 peak), 240 GFLOP at its 2048 train rows (~0.24
 // ms, level with the bytes).
 //
-// Two routes, chosen by shape in kernels/ragged_dot.py, each with its own
-// C entry point and launch counter:
+// Three routes, chosen by shape in kernels/ragged_dot.py, each with its
+// own C entry points and launch counters; two are in this file. The
+// third, fp32 at K and N multiples of 4 (every published MoE width), is
+// csrc/ragged_dot_tf32.cu: 3xTF32 on wgmma. It is a design of its own
+// because TF32 wgmma takes both shared-memory operands K-major only (the
+// transpose bits below exist for 16-bit types alone), so the forward
+// there takes the weights as wgmma's A from registers (split into hi/lo
+// there, never in HBM, whose bytes bound the forward) and the weight
+// gradient splits its activations ahead into transposed planes.
 //
 // The Hopper route (bf16, K and N multiples of 8, every operand 16-byte
 // aligned: every published MoE width), ragged_dot_tma and
@@ -71,8 +78,8 @@
 // rows take a third, nearly empty row tile, and loads and products, each
 // ~0.4 ms alone, overlap only in part.
 //
-// The first route (fp32 on IEEE FFMA, never TF32, and bf16 at odd shapes
-// on WMMA 16x16x16), ragged_dot and ragged_dot_wgrad:
+// The first route (fp32 at odd shapes on IEEE FFMA, never TF32, and bf16
+// at odd shapes on WMMA 16x16x16), ragged_dot and ragged_dot_wgrad:
 //   * forward: a block owns BM rows of ONE group and BN output columns.
 //     The grid launches cdiv(M, BM) + G row tiles, an upper bound on the
 //     tiles the groups and the zero tail need (cdiv(a) + cdiv(b) <=

@@ -37,10 +37,16 @@ _COUNTERS = {"pairwise_kl_split": (_pk, "split_launches"),
              "ragged_dot_wgrad": (_rd, "wgrad_launches")}
 
 
-# launches of one route of a kernel that has two, by the shape it was
-# given (already counted in that kernel's total above)
+# launches of the Hopper routes of the kernels that have several, by the
+# shape they were given (the calls already counted in that kernel's total
+# above): bf16's (tma), fp32's products (tf32) and the splits before them
 _ROUTE_COUNTERS = {"ragged_dot.tma": (_rd, "tma_launches"),
-                   "ragged_dot_wgrad.tma": (_rd, "tma_wgrad_launches")}
+                   "ragged_dot_wgrad.tma": (_rd, "tma_wgrad_launches"),
+                   "ragged_dot.tf32": (_rd, "tf32_launches"),
+                   "ragged_dot_wgrad.tf32": (_rd, "tf32_wgrad_launches"),
+                   "ragged_dot.tf32_split": (_rd, "tf32_split_launches"),
+                   "ragged_dot_wgrad.tf32_split": (
+                       _rd, "tf32_wgrad_split_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -50,8 +56,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """Launches so far of the Hopper route of ``ragged_dot`` and
-    ``ragged_dot_wgrad`` (the rest of their totals took the first)."""
+    """Launches so far of the Hopper routes of ``ragged_dot`` and
+    ``ragged_dot_wgrad``: bf16's, and fp32's products and splits (the
+    rest of their totals took the first route)."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _ROUTE_COUNTERS.items()}
 

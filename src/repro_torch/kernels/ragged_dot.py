@@ -22,8 +22,8 @@ group sizes read on the host); a CUDA tensor launches a kernel or
 raises. The kernels read the group sizes on the device only: nothing
 here synchronises with the host.
 
-Two hand kernels a product, chosen by shape (``takes_tma``), never by
-a failure:
+Three routes a product, chosen by shape (``takes_tma``,
+``takes_tf32``), never by a failure:
 
   * the Hopper route (bf16 whose K and N are multiples of 8 and whose
     operands are 16-byte aligned: every published MoE width;
@@ -35,12 +35,27 @@ a failure:
     or their gradient written, once; ~0.28 ms at mixtral-8x7b's widths,
     ~0.76 ms at deepseek-v2-236b's on 3.35 TB/s) or, at mixtral's 2048
     train rows, as much the 240 GFLOP (~0.24 ms at 989 TFLOP/s);
-  * the first route (fp32 on IEEE FFMA, bf16 at other shapes on WMMA,
-    cp.async rings; ``ragged_dot`` / ``ragged_dot_wgrad``).
+  * the fp32 Hopper route (fp32 whose K and N are multiples of 4 and
+    whose operands are 16-byte aligned; ``csrc/ragged_dot_tf32.cu``):
+    3xTF32 on ``wgmma``. The forward splits lhs into TF32 hi/lo planes
+    (B1's split pass, ``pairwise_kl_split``), then ``ragged_dot_tf32``
+    computes each 128-column tile transposed, the weights as wgmma's A
+    from registers (split there) and up to 144 of a group's rows as its
+    N (``tf32_walk``);
+    the weight gradient splits lhs and grad transposed, each group padded
+    to whole 32-row stages (``ragged_dot_wgrad_tf32_split``), then
+    ``ragged_dot_wgrad_tf32`` runs B1's 3xTF32 product over each group's
+    stages (``tf32_wgrad_walk``). Bound: the bytes at prefill (1.88 GB
+    of mixtral-8x7b's fp32 weights, ~0.57 ms), the 3 x 2 M K N TF32
+    flops at its 2048 train rows (~1.46 ms at 495 TFLOP/s);
+  * the first route (bf16 and fp32 at other shapes, on WMMA and IEEE
+    FFMA, cp.async rings; ``ragged_dot`` / ``ragged_dot_wgrad``).
 
-``launches`` and ``wgrad_launches`` count kernel launches of both
-routes; ``tma_launches`` and ``tma_wgrad_launches`` those of the Hopper
-route.
+``launches`` and ``wgrad_launches`` count the calls that launched a
+route's product (one a call, whichever route); ``tma_launches`` and
+``tma_wgrad_launches`` the Hopper route's, ``tf32_launches``,
+``tf32_wgrad_launches``, ``tf32_split_launches`` and
+``tf32_wgrad_split_launches`` the fp32 Hopper route's kernels.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
+from repro_torch.kernels import pairwise_kl as pk
 from repro_torch.kernels.geometry import (H100_SMS, Cover, Geometry,
                                           TensorMap, blocks, num_sms)
 from repro_torch.kernels.ref import ragged_dot_ref as plain
@@ -63,6 +79,14 @@ ENTRY, WGRAD_ENTRY = "ragged_dot", "ragged_dot_wgrad"
 TMA_ENTRY, TMA_WGRAD_ENTRY = "ragged_dot_tma", "ragged_dot_wgrad_tma"
 ENTRIES = {ENTRY: (4, 10), WGRAD_ENTRY: (4, 10), TMA_ENTRY: (4, 8),
            TMA_WGRAD_ENTRY: (4, 7)}
+# the fp32 Hopper route's source and entry points (its forward's split is
+# B1's, csrc/pairwise_kl.cu's pairwise_kl_split)
+TF32_SOURCE = "ragged_dot_tf32"
+TF32_ENTRY = "ragged_dot_tf32"
+TF32_WGRAD_SPLIT_ENTRY = "ragged_dot_wgrad_tf32_split"
+TF32_WGRAD_ENTRY = "ragged_dot_wgrad_tf32"
+TF32_ENTRIES = {TF32_ENTRY: (4, 8), TF32_WGRAD_SPLIT_ENTRY: (5, 10),
+                TF32_WGRAD_ENTRY: (4, 8)}
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUPS = 1024  # the group tables live in a block's shared memory
 BM, BN, BK = 64, 128, 32   # csrc/ragged_dot.cu's output tile and stage
@@ -78,10 +102,29 @@ TMA_STAGES = 4
 TMA_THREADS = 384
 TMA_SMEM = TMA_STAGES * (TMA_BM * TMA_BK + TMA_BK * TMA_BN) * 2 + 1024
 TMA_BLOCKS_PER_SM = 1
+# the fp32 Hopper route (csrc/ragged_dot_tf32.cu): 32-deep stages (one
+# 128-byte swizzle row of fp32); the forward's 128-column tiles of up to
+# 144 rows of a group, rounded up to 16, a ring of 4 stages (a 128 x 32
+# weight tile, lhs's hi and lo 144 x 32 tiles) and 1024 bytes of
+# alignment; the weight gradient's 128 x 128 tiles over a ring of 3 stages
+# of four 128 x 32 plane tiles; the transposing split's tile (32 padded
+# columns by 64 columns)
+TF32_BK = 32
+TF32_BN, TF32_BR, TF32_ROW_STEP = 128, 144, 16
+TF32_STAGES = 4
+TF32_SMEM = TF32_STAGES * (TF32_BN + 2 * TF32_BR) * TF32_BK * 4 + 1024
+TF32_WG_BM, TF32_WG_BN = 128, 128
+TF32_WG_STAGES = 3
+TF32_WG_SMEM = TF32_WG_STAGES * 4 * 128 * TF32_BK * 4 + 1024
+TF32_TN, TF32_TJ, TF32_SPLIT_T_THREADS = 32, 64, 256
 launches = 0
 wgrad_launches = 0
 tma_launches = 0
 tma_wgrad_launches = 0
+tf32_launches = 0
+tf32_wgrad_launches = 0
+tf32_split_launches = 0
+tf32_wgrad_split_launches = 0
 
 
 def ring_bytes(elem: int, a: Tuple[int, int], b: Tuple[int, int],
@@ -139,17 +182,17 @@ def takes_tma(dtype: torch.dtype, m: int, k: int, n: int, *tensors) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def tma_tables(sizes, m: int):
+def tma_tables(sizes, m: int, rows: int = TMA_BM):
     """The kernel's group tables: each group's first row ``off[g]``
-    (sizes clamped at 0, the running sum at M) and first row tile
-    ``tile[g]``, for g <= G + 1; the zero tail past the groups is group G
-    (``off[G + 1] = M``)."""
+    (sizes clamped at 0, the running sum at M) and first tile of ``rows``
+    rows ``tile[g]``, for g <= G + 1; the zero tail past the groups is
+    group G (``off[G + 1] = M``)."""
     off, tile, at, t = [], [], 0, 0
     for size in list(sizes) + [m]:
         off.append(at)
         tile.append(t)
         end = min(at + max(int(size), 0), m)
-        t += blocks(end - at, TMA_BM)
+        t += blocks(end - at, rows)
         at = end
     off.append(m)
     tile.append(t)
@@ -174,23 +217,25 @@ def tma_args(m: int, n: int, g: int, sms: int) -> Tuple[int, int, int]:
     return _persistent(tma_tiles(m, n, g), sms), TMA_THREADS, TMA_SMEM
 
 
-def tma_walk(sizes, m: int, n: int, grid: int):
+def tma_walk(sizes, m: int, n: int, grid: int, rows: int = TMA_BM,
+             cols: int = TMA_BN):
     """The Hopper forward's tiles as its blocks take them: block b takes
     tiles b, b + grid, ... of the linear index over (group, column tile,
     row tile), the zero tail last; yields (block, group, first row, the
     group's end row, first column). A tile's rows from its group's end on
-    are not stored."""
+    are not stored. ``rows`` and ``cols``: a tile's (the fp32 route's
+    are TF32_BR and TF32_BN)."""
     g = len(sizes)
-    off, tile = tma_tables(sizes, m)
-    ncol = blocks(n, TMA_BN)
+    off, tile = tma_tables(sizes, m, rows)
+    ncol = blocks(n, cols)
     starts = [t * ncol for t in tile[:g + 1]]
     for b in range(grid):
         for t in range(b, tile[g + 1] * ncol, grid):
             grp = bisect.bisect_right(starts, t) - 1
             local = t - starts[grp]
-            rows = tile[grp + 1] - tile[grp]
-            yield (b, grp, off[grp] + (local % rows) * TMA_BM, off[grp + 1],
-                   (local // rows) * TMA_BN)
+            in_group = tile[grp + 1] - tile[grp]
+            yield (b, grp, off[grp] + (local % in_group) * rows,
+                   off[grp + 1], (local // in_group) * cols)
 
 
 def tma_geometry(m: int, k: int, n: int, g: int, transpose_rhs: bool,
@@ -241,6 +286,133 @@ def tma_wgrad_geometry(m: int, k: int, n: int, g: int,
                            tiles, passes=blocks(tiles, grid)),),
                     (TensorMap("lhs (M, K)", (k, m), (2 * k,)),
                      TensorMap("grad (M, N)", (n, m), (2 * n,))))
+
+
+def takes_tf32(dtype: torch.dtype, m: int, k: int, n: int,
+               *tensors) -> bool:
+    """Whether a call takes the fp32 Hopper route: fp32, at least one
+    row, K and N multiples of 4 (each row a whole number of 16-byte units,
+    as a tensor map's strides must be) and every operand 16-byte aligned.
+    Other fp32 calls take the first route."""
+    return (dtype == torch.float32 and m > 0 and k > 0 and n > 0
+            and k % 4 == 0 and n % 4 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def tf32_k_pad(k: int) -> int:
+    """The split planes' row length: K padded to whole 32-deep stages."""
+    return blocks(k, TF32_BK) * TF32_BK
+
+
+def tf32_tiles(m: int, n: int, g: int) -> int:
+    """The fp32 forward's tiles, bounded without the sizes: (cdiv(M, 144)
+    + G) row tiles by cdiv(N, 128) column tiles."""
+    return (blocks(m, TF32_BR) + g) * blocks(n, TF32_BN)
+
+
+def tf32_args(m: int, n: int, g: int, sms: int) -> Tuple[int, int, int]:
+    """The fp32 forward's persistent grid: one block an SM, never more
+    blocks than tiles; threads a block, dynamic shared memory."""
+    return _persistent(tf32_tiles(m, n, g), sms), TMA_THREADS, TF32_SMEM
+
+
+def tf32_walk(sizes, m: int, n: int, grid: int):
+    """The fp32 forward's tiles as its blocks take them, as ``tma_walk``
+    with its 144-row, 128-column tiles; a tile's rows, rounded up to 16,
+    are wgmma's N."""
+    return tma_walk(sizes, m, n, grid, TF32_BR, TF32_BN)
+
+
+def tf32_geometry(m: int, k: int, n: int, g: int, transpose_rhs: bool,
+                  sms: int = H100_SMS) -> Geometry:
+    grid, threads, smem = tf32_args(m, n, g, sms)
+    tiles = tf32_tiles(m, n, g)
+    kp = tf32_k_pad(k)
+    rhs = (TensorMap("rhs (G, N, K)", (k, n, g), (4 * k, 4 * k * n))
+           if transpose_rhs else
+           TensorMap("rhs (G, K, N)", (n, k, g), (4 * n, 4 * n * k)))
+    return Geometry(TF32_ENTRY, (grid, 1, 1), (threads, 1, 1), smem,
+                    (Cover("tiles: (cdiv(M, 144) + G) row tiles x "
+                           "cdiv(N, 128) column tiles", 0, 1, tiles,
+                           passes=blocks(tiles, grid)),),
+                    (TensorMap("lhs planes (2, M, Kp)", (kp, m, 2),
+                               (4 * kp, 4 * kp * m)), rhs))
+
+
+def tf32_m_pad(m: int, g: int) -> int:
+    """The transposed planes' columns: each group's rows padded to whole
+    32-row stages fit in 32 (cdiv(M, 32) + G), whatever the sizes."""
+    return TF32_TN * (blocks(m, TF32_TN) + g)
+
+
+def tf32_wgrad_split_args(m: int, k: int, n: int,
+                          g: int) -> Tuple[int, int, int, int, int]:
+    """The weight gradient's transposing split of lhs (M, K) and grad
+    (M, N) into (2, K, Mpad) and (2, N, Mpad) planes: x over Mpad in
+    TF32_TN (cdiv(M, 32) + G blocks, past y's 65535 from about 2.1M
+    rows), y over the wider operand's columns in TF32_TJ, z the two
+    operands."""
+    return (tf32_m_pad(m, g) // TF32_TN, blocks(max(k, n), TF32_TJ), 2,
+            TF32_SPLIT_T_THREADS, 0)
+
+
+def tf32_wgrad_split_geometry(m: int, k: int, n: int, g: int) -> Geometry:
+    gx, gy, gz, threads, smem = tf32_wgrad_split_args(m, k, n, g)
+    return Geometry(TF32_WGRAD_SPLIT_ENTRY, (gx, gy, gz), (threads, 1, 1),
+                    smem,
+                    (Cover("padded rows (32 (cdiv(M, 32) + G))", 0, TF32_TN,
+                           tf32_m_pad(m, g)),
+                     Cover("columns of lhs or grad (max(K, N))", 1, TF32_TJ,
+                           max(k, n)),
+                     Cover("operands (lhs, grad)", 2, 1, 2)))
+
+
+def tf32_wgrad_tables(sizes, m: int):
+    """The transposed planes' layout: group g's rows at columns
+    ``32 tile[g]`` .. + its rows, zero to the next multiple of 32, its
+    stages ``tile[g + 1] - tile[g]`` (``tma_tables`` at 32 rows)."""
+    return tma_tables(sizes, m, TF32_TN)
+
+
+def tf32_wgrad_tiles(k: int, n: int, g: int) -> int:
+    """The fp32 weight gradient's tiles: G x cdiv(K, 128) x cdiv(N, 128)
+    (every group's, an empty one's stored 0)."""
+    return g * blocks(k, TF32_WG_BM) * blocks(n, TF32_WG_BN)
+
+
+def tf32_wgrad_args(k: int, n: int, g: int,
+                    sms: int) -> Tuple[int, int, int]:
+    return (_persistent(tf32_wgrad_tiles(k, n, g), sms), TMA_THREADS,
+            TF32_WG_SMEM)
+
+
+def tf32_wgrad_walk(sizes, m: int, k: int, n: int, grid: int):
+    """The fp32 weight gradient's tiles as its blocks take them: block b
+    takes tiles b, b + grid, ... of the linear index over (group, K tile,
+    N tile); yields (block, group, first K row, first column, the group's
+    first padded column, its stages)."""
+    off, tile = tf32_wgrad_tables(sizes, m)
+    nk, nn = blocks(k, TF32_WG_BM), blocks(n, TF32_WG_BN)
+    for b in range(grid):
+        for t in range(b, len(sizes) * nk * nn, grid):
+            grp, local = divmod(t, nk * nn)
+            yield (b, grp, (local // nn) * TF32_WG_BM,
+                   (local % nn) * TF32_WG_BN, TF32_TN * tile[grp],
+                   tile[grp + 1] - tile[grp])
+
+
+def tf32_wgrad_geometry(m: int, k: int, n: int, g: int,
+                        sms: int = H100_SMS) -> Geometry:
+    grid, threads, smem = tf32_wgrad_args(k, n, g, sms)
+    tiles = tf32_wgrad_tiles(k, n, g)
+    mp = tf32_m_pad(m, g)
+    return Geometry(TF32_WGRAD_ENTRY, (grid, 1, 1), (threads, 1, 1), smem,
+                    (Cover("tiles: G x cdiv(K, 128) x cdiv(N, 128)", 0, 1,
+                           tiles, passes=blocks(tiles, grid)),),
+                    (TensorMap("lhs^T planes (2, K, Mpad)", (mp, k, 2),
+                               (4 * mp, 4 * mp * k)),
+                     TensorMap("grad^T planes (2, N, Mpad)", (mp, n, 2),
+                               (4 * mp, 4 * mp * n))))
 
 
 def _shapes(lhs, rhs, group_sizes, transpose_rhs: bool):
@@ -319,6 +491,8 @@ def _ragged_dot_cuda(lhs, rhs, group_sizes, transpose_rhs):
                   *tma_args(m, n, g, num_sms(lhs.device)), stream)
         build.check(TMA_ENTRY, code)
         tma_launches += 1
+    elif takes_tf32(lhs.dtype, m, k, n, lhs, rhs, out):
+        _tf32_forward(lhs, rhs, group_sizes, out, transpose_rhs, stream)
     else:
         fn = build.entry(SOURCE, ENTRY, *ENTRIES[ENTRY])
         code = fn(*ptrs, m, k, n, g, int(lhs.dtype == torch.bfloat16),
@@ -328,6 +502,59 @@ def _ragged_dot_cuda(lhs, rhs, group_sizes, transpose_rhs):
         build.check(ENTRY, code)
     launches += 1
     return out
+
+
+def _count_tf32_split() -> None:
+    global tf32_split_launches
+    tf32_split_launches += 1
+
+
+def tf32_split(lhs: torch.Tensor) -> torch.Tensor:
+    """The fp32 forward's split on the card: lhs (M, K) fp32 -> planes
+    (2, M, Kp), hi = tf32(lhs), lo = tf32(lhs - hi), zero past K, by B1's
+    split pass in its B-side mode (its plain version:
+    ``ref.pairwise_kl_split_ref``); counted here, not in B1's count."""
+    return pk.split(lhs.unsqueeze(-1), False, count=_count_tf32_split).planes
+
+
+def tf32_wgrad_split(lhs: torch.Tensor, grad: torch.Tensor,
+                     group_sizes: torch.Tensor):
+    """The fp32 weight gradient's transposing split on the card: lhs (M,
+    K) and grad (M, N) fp32 -> planes (2, K, Mpad) and (2, N, Mpad), each
+    group's rows from a 32-column boundary, zero to the next (its plain
+    version: ``ref.ragged_dot_wgrad_tf32_split_ref``; the columns past the
+    groups' are not written)."""
+    global tf32_wgrad_split_launches
+    m, k = lhs.shape
+    n, g = grad.shape[1], group_sizes.shape[0]
+    mp = tf32_m_pad(m, g)
+    lhs_t = torch.empty((2, k, mp), dtype=torch.float32, device=lhs.device)
+    grad_t = torch.empty((2, n, mp), dtype=torch.float32, device=lhs.device)
+    fn = build.entry(TF32_SOURCE, TF32_WGRAD_SPLIT_ENTRY,
+                     *TF32_ENTRIES[TF32_WGRAD_SPLIT_ENTRY])
+    build.check(TF32_WGRAD_SPLIT_ENTRY,
+                fn(lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
+                   lhs_t.data_ptr(), grad_t.data_ptr(), m, k, n, g, mp,
+                   *tf32_wgrad_split_args(m, k, n, g),
+                   torch.cuda.current_stream(lhs.device).cuda_stream))
+    tf32_wgrad_split_launches += 1
+    return lhs_t, grad_t
+
+
+def _tf32_forward(lhs, rhs, group_sizes, out, transpose_rhs, stream):
+    """The fp32 Hopper route's two launches: lhs's hi/lo planes, then the
+    grouped 3xTF32 product over them."""
+    global tf32_launches
+    m, k = lhs.shape
+    n, g = out.shape[1], rhs.shape[0]
+    planes = tf32_split(lhs)
+    fn = build.entry(TF32_SOURCE, TF32_ENTRY, *TF32_ENTRIES[TF32_ENTRY])
+    build.check(TF32_ENTRY, fn(planes.data_ptr(), rhs.data_ptr(),
+                               group_sizes.data_ptr(), out.data_ptr(), m, k,
+                               n, g, int(transpose_rhs),
+                               *tf32_args(m, n, g, num_sms(lhs.device)),
+                               stream))
+    tf32_launches += 1
 
 
 @ragged_dot.register_fake
@@ -382,6 +609,8 @@ def _ragged_dot_wgrad_cuda(lhs, grad, group_sizes):
                   *tma_wgrad_args(k, n, g, num_sms(lhs.device)), stream)
         build.check(TMA_WGRAD_ENTRY, code)
         tma_wgrad_launches += 1
+    elif takes_tf32(lhs.dtype, m, k, n, lhs, grad, out):
+        _tf32_wgrad(lhs, grad, group_sizes, out, stream)
     else:
         fn = build.entry(SOURCE, WGRAD_ENTRY, *ENTRIES[WGRAD_ENTRY])
         code = fn(*ptrs, m, k, n, g, int(lhs.dtype == torch.bfloat16),
@@ -389,6 +618,24 @@ def _ragged_dot_wgrad_cuda(lhs, grad, group_sizes):
         build.check(WGRAD_ENTRY, code)
     wgrad_launches += 1
     return out
+
+
+def _tf32_wgrad(lhs, grad, group_sizes, out, stream):
+    """The fp32 Hopper route's two launches: lhs's and grad's transposed
+    hi/lo planes, each group on whole 32-row stages, then the grouped
+    3xTF32 product over them."""
+    global tf32_wgrad_launches
+    m, k = lhs.shape
+    n, g = grad.shape[1], group_sizes.shape[0]
+    mp = tf32_m_pad(m, g)
+    lhs_t, grad_t = tf32_wgrad_split(lhs, grad, group_sizes)
+    fn = build.entry(TF32_SOURCE, TF32_WGRAD_ENTRY,
+                     *TF32_ENTRIES[TF32_WGRAD_ENTRY])
+    build.check(TF32_WGRAD_ENTRY,
+                fn(lhs_t.data_ptr(), grad_t.data_ptr(),
+                   group_sizes.data_ptr(), out.data_ptr(), m, k, n, g, mp,
+                   *tf32_wgrad_args(k, n, g, num_sms(lhs.device)), stream))
+    tf32_wgrad_launches += 1
 
 
 @ragged_dot_wgrad.register_fake

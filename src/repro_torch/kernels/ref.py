@@ -206,3 +206,27 @@ def ragged_dot_wgrad_ref(lhs: torch.Tensor, grad: torch.Tensor,
             out[g] = lhs[start:start + size].t().mm(grad[start:start + size])
             start += size
     return out
+
+
+def ragged_dot_wgrad_tf32_split_ref(x: torch.Tensor,
+                                    group_sizes: torch.Tensor,
+                                    m_pad: int) -> torch.Tensor:
+    """The fp32 weight gradient's transposing split: x (M, C) with its rows
+    sorted by group -> planes (2, C, m_pad) fp32 of x^T, hi and lo as the
+    split pass rounds them, group g's rows (sizes clamped at 0, the
+    running sum at M) from column 32 T(g) on, T(g) the 32-row stages of
+    the groups before it, zero elsewhere. The group sizes are read on the
+    host."""
+    m, c = x.shape
+    hi = tf32_round(x)
+    lo = tf32_round(x.float() - hi)
+    planes = torch.zeros((2, c, m_pad), dtype=torch.float32, device=x.device)
+    start = col = 0
+    for size in group_sizes.tolist():
+        size = max(0, min(size, m - start))
+        planes[0, :, col:col + size] = hi[start:start + size].T
+        planes[1, :, col:col + size] = lo[start:start + size].T
+        start += size
+        col += -(-size // 32) * 32
+    return planes
+

@@ -346,7 +346,8 @@ def test_every_probe_geometry_is_clean_and_every_kernel_is_probed():
         "pairwise_kl_split", "pairwise_kl_pair", "neighbor_mean_split",
         "soft_ce", "neighbor_gather", "int8_pairwise_kl_split",
         "int8_pairwise_kl_thin", "ragged_dot", "ragged_dot_wgrad",
-        "ragged_dot_tma", "ragged_dot_wgrad_tma"}
+        "ragged_dot_tma", "ragged_dot_wgrad_tma", "ragged_dot_tf32",
+        "ragged_dot_wgrad_tf32_split", "ragged_dot_wgrad_tf32"}
     for label, geo in probes:
         assert launch_rules.check_geometry(label, geo) == [], label
 

@@ -318,3 +318,32 @@ def test_federate_cli_ivf_int8_on_cpu(capsys):
                 ["--downlink", "int8:2"]):
         with pytest.raises(SystemExit):
             federate.main(["--device", "cpu", "--rounds", "1", *bad])
+
+
+def test_graph_stats_out_degree_is_the_references_mean():
+    """``out_degree`` reads as the reference's ``jnp.mean`` reads it (the
+    fp32 sum times the fp32 reciprocal of the count: 6.000000476837158
+    for 28 rows of 6, where torch.mean read 6.0 on the CPU), on even rows
+    and on rows every fourth of which is one short; computed on the host,
+    so the card reads the same bits."""
+    from repro.core import graph_stats as jax_graph_stats
+    from repro.core.graph import CollaborationGraph as JaxGraph
+    from repro_torch.core import graph_stats
+    from repro_torch.core.graph import CollaborationGraph
+    n, k = 28, 6
+    rng = np.random.default_rng(n)
+    for short in (0, 1):
+        w = np.zeros((n, n), np.float32)
+        for i in range(n):
+            deg = k - short if i % 4 == 0 else k
+            w[i, rng.choice(n, deg, replace=False)] = 1.0 / deg
+        cand = np.ones(n, bool)
+        tstats = graph_stats(CollaborationGraph(
+            torch.zeros((n, k), dtype=torch.int32), torch.from_numpy(w),
+            torch.zeros((n, n)), torch.from_numpy(cand)))
+        jstats = jax_graph_stats(JaxGraph(
+            jnp.zeros((n, k), jnp.int32), jnp.asarray(w), jnp.zeros((n, n)),
+            jnp.asarray(cand)))
+        assert tstats["out_degree"] == jstats["out_degree"]
+        assert tstats == jstats
+    assert tstats["out_degree"] == 5.750000476837158    # 161 / 28

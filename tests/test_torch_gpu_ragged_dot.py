@@ -13,10 +13,13 @@ the groups' sum and 160 groups; the Hopper route (bf16, K and N multiples
 of 8) on its own edges, its route counter read: groups straddling every
 tile edge, K a multiple of 8 but not of 64, empty first and last groups,
 rows past the sum, 160 groups, more tiles than one persistent pass; the
-op's autograd on the card against the CPU's; the dropless FFN's forward
-and backward under ``torch.cuda.set_sync_debug_mode("error")``, with
-exactly three forward launches a layer and three plus three in the
-backward.
+fp32 Hopper route (3xTF32, K and N multiples of 4) on the same edges and
+its own (one group holding every row, K and N multiples of 4 but not of
+8), its counters read; which route fp32 and odd widths take; the op's
+autograd on the card against the CPU's; the dropless FFN's forward and
+backward in bf16 and fp32 under ``torch.cuda.set_sync_debug_mode(
+"error")``, with exactly three forward launches a layer and three plus
+three in the backward.
 """
 import numpy as np
 import pytest
@@ -157,13 +160,86 @@ def test_hopper_route_matches_plain(hopper, case):
         assert not cases[2][0][i].any()
 
 
-def test_first_route_keeps_fp32_and_odd_widths(hopper):
-    """fp32 at aligned widths and bf16 at odd ones take the first route:
-    the totals move, the Hopper route's counters do not."""
+# the fp32 Hopper route's own cases beside TMA_CASES: one group holding
+# every row, K and N multiples of 4 but not of 8
+TF32_CASES = {
+    "one_group_all_rows": (257, 24, 136, [0, 257, 0]),
+    "widths_of_4_not_8": (300, 20, 36, [100, 0, 150, 10]),
+}
+
+
+@pytest.mark.parametrize("case", sorted({**TMA_CASES, **TF32_CASES}))
+def test_tf32_route_matches_plain(hopper, case):
+    """The fp32 Hopper route at the bf16 route's edges and its own, each
+    entry within 1e-5 of its plain version's scale, rows past the sum and
+    empty groups' gradients 0, every call on that route."""
+    m, k, n, sizes = {**TMA_CASES, **TF32_CASES}[case]
+    rng = np.random.default_rng(3)
+    if sizes is None:
+        sizes = _sizes("160_groups", m, rng)
+    sizes = np.asarray(sizes, np.int32)
+    g = len(sizes)
+
+    def draw(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32)) \
+            .to(hopper)
+
+    lhs, rhs, dout = draw(m, k), draw(g, k, n), draw(m, n)
+    ts = torch.from_numpy(sizes).to(hopper)
+    before = ops.route_counts()
+    cases = [
+        (rd.ragged_dot(lhs, rhs, ts, False), ragged_dot_ref(lhs, rhs, ts),
+         np.sqrt(k)),
+        (rd.ragged_dot(dout, rhs, ts, True),
+         ragged_dot_ref(dout, rhs, ts, True), np.sqrt(n)),
+        (rd.ragged_dot_wgrad(lhs, dout, ts),
+         ragged_dot_wgrad_ref(lhs, dout, ts), np.sqrt(m))]
+    torch.cuda.synchronize()
+    moved = {name: c - before[name] for name, c in ops.route_counts().items()}
+    assert moved == {"ragged_dot.tma": 0, "ragged_dot_wgrad.tma": 0,
+                     "ragged_dot.tf32": 2, "ragged_dot.tf32_split": 2,
+                     "ragged_dot_wgrad.tf32": 1,
+                     "ragged_dot_wgrad.tf32_split": 1}
+    used = int(min(sizes.sum(), m))
+    for got, want, scale in cases:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _close(got, want, torch.float32, float(scale))
+    assert not cases[0][0][used:].any() and not cases[1][0][used:].any()
+    for i in np.flatnonzero(sizes == 0):
+        assert not cases[2][0][i].any()
+
+
+def test_tf32_route_takes_fp32_at_aligned_widths(hopper):
+    """fp32 at widths that are multiples of 4 takes the fp32 Hopper route:
+    its counters move (a split and a product a call), the bf16 route's do
+    not, and each call counts once in its kernel's total."""
     sizes = torch.tensor([30, 0, 50], dtype=torch.int32, device=hopper)
     before, routes = ops.launch_counts(), ops.route_counts()
-    for dtype, k, n in ((torch.float32, 64, 136), (torch.bfloat16, 21, 136),
-                        (torch.bfloat16, 64, 131)):
+    for k, n in ((64, 136), (20, 12)):
+        lhs = torch.randn(90, k, device=hopper)
+        rhs = torch.randn(3, k, n, device=hopper)
+        dout = torch.randn(90, n, device=hopper)
+        rd.ragged_dot(lhs, rhs, sizes, False)
+        rd.ragged_dot_wgrad(lhs, dout, sizes)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["ragged_dot"] - before["ragged_dot"] == 2
+    assert after["ragged_dot_wgrad"] - before["ragged_dot_wgrad"] == 2
+    moved = {name: c - routes[name] for name, c in ops.route_counts().items()}
+    assert moved == {"ragged_dot.tma": 0, "ragged_dot_wgrad.tma": 0,
+                     "ragged_dot.tf32": 2, "ragged_dot.tf32_split": 2,
+                     "ragged_dot_wgrad.tf32": 2,
+                     "ragged_dot_wgrad.tf32_split": 2}
+
+
+def test_first_route_keeps_odd_widths(hopper):
+    """bf16 and fp32 at odd widths take the first route: the totals move,
+    no Hopper route's counters do."""
+    sizes = torch.tensor([30, 0, 50], dtype=torch.int32, device=hopper)
+    before, routes = ops.launch_counts(), ops.route_counts()
+    for dtype, k, n in ((torch.bfloat16, 21, 136), (torch.bfloat16, 64, 131),
+                        (torch.float32, 21, 136), (torch.float32, 64, 131),
+                        (torch.float32, 6, 136)):
         lhs = torch.randn(90, k, device=hopper).to(dtype)
         rhs = torch.randn(3, k, n, device=hopper).to(dtype)
         dout = torch.randn(90, n, device=hopper).to(dtype)
@@ -171,8 +247,8 @@ def test_first_route_keeps_fp32_and_odd_widths(hopper):
         rd.ragged_dot_wgrad(lhs, dout, sizes)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["ragged_dot"] - before["ragged_dot"] == 3
-    assert after["ragged_dot_wgrad"] - before["ragged_dot_wgrad"] == 3
+    assert after["ragged_dot"] - before["ragged_dot"] == 5
+    assert after["ragged_dot_wgrad"] - before["ragged_dot_wgrad"] == 5
     assert ops.route_counts() == routes
 
 
@@ -193,12 +269,18 @@ def test_autograd_on_the_card_matches_the_cpu(hopper):
         assert (got - want).abs().max() <= 1e-5 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("dtype", ["param", "float32"])
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-236b"])
-def test_dropless_ffn_is_sync_free_on_the_card(hopper, arch):
+def test_dropless_ffn_is_sync_free_on_the_card(hopper, arch, dtype):
+    """The reduced config's FFN in its own bf16 (the Hopper route) and in
+    fp32 (the fp32 Hopper route)."""
+    import dataclasses
     from repro_torch.configs import get_reduced
     from repro_torch.models.common import Init
     from repro_torch.models.ffn import init_moe, moe_dropless_forward
     cfg = get_reduced(arch)
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, param_dtype=torch.float32)
     torch.manual_seed(0)
     p = init_moe(Init(None, hopper), cfg)
     for v in p.values():
@@ -219,4 +301,8 @@ def test_dropless_ffn_is_sync_free_on_the_card(hopper, arch):
     assert counts["ragged_dot"] == 6 and counts["ragged_dot_wgrad"] == 3
     assert all(v == 0 for name, v in counts.items()
                if not name.startswith("ragged_dot"))
+    routes = ops.route_counts()
+    hopper_route = "tf32" if dtype == "float32" else "tma"
+    assert routes[f"ragged_dot.{hopper_route}"] == 6
+    assert routes[f"ragged_dot_wgrad.{hopper_route}"] == 3
     assert torch.isfinite(x.grad).all() and p["w_gate"].grad.abs().sum() > 0

@@ -25,7 +25,9 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_kl as pk
 from repro_torch.kernels import ragged_dot as rd
+from repro_torch.kernels import ref
 
 M, K, N = 23, 12, 10
 # group sizes: two empty groups and 3 rows past the sum; all rows in one
@@ -321,3 +323,239 @@ def test_route_follows_dtype_alignment_and_widths():
     assert shifted.data_ptr() % 16 == 2
     assert not rd.takes_tma(torch.bfloat16, 40, 64, 136, shifted, rhs)
     assert not rd.takes_tma(torch.bfloat16, 0, 64, 136, t(0, 64), rhs)
+
+
+# --------------------------------------------------------------------------
+# the fp32 Hopper route (csrc/ragged_dot_tf32.cu): its choice, its tile
+# walks, its padded layout and its 3xTF32 arithmetic
+# --------------------------------------------------------------------------
+
+def test_tf32_route_follows_dtype_alignment_and_widths():
+    """The fp32 Hopper route takes fp32 whose K and N are multiples of 4
+    and whose operands are 16-byte aligned; odd widths, a misaligned
+    operand and an empty lhs take the first route; bf16 keeps
+    ``takes_tma``'s choice and never takes this one."""
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype)
+
+    lhs, rhs = t(40, 64), t(3, 64, 136)
+    assert rd.takes_tf32(torch.float32, 40, 64, 136, lhs, rhs)
+    assert rd.takes_tf32(torch.float32, 40, 24, 20, t(40, 24), t(3, 24, 20))
+    for k, n in ((21, 136), (64, 131), (6, 136), (64, 2)):
+        assert not rd.takes_tf32(torch.float32, 40, k, n, t(40, k),
+                                 t(3, k, n))
+    shifted = t(40 * 64 + 1)[1:].view(40, 64)    # 4 bytes off 16
+    assert shifted.data_ptr() % 16 == 4
+    assert not rd.takes_tf32(torch.float32, 40, 64, 136, shifted, rhs)
+    assert not rd.takes_tf32(torch.float32, 0, 64, 136, t(0, 64), rhs)
+    b16 = (t(40, 64, dtype=torch.bfloat16), t(3, 64, 136,
+                                               dtype=torch.bfloat16))
+    assert not rd.takes_tf32(torch.bfloat16, 40, 64, 136, *b16)
+    assert rd.takes_tma(torch.bfloat16, 40, 64, 136, *b16)
+    assert not rd.takes_tma(torch.float32, 40, 64, 136, lhs, rhs)
+
+
+def test_tf32_constants_are_the_sources():
+    """The fp32 route's tiles, rings, threads and shared memory restate
+    csrc/ragged_dot_tf32.cu's constants (its entry points refuse any
+    other launch); its grids: one block an SM, never more than the
+    tiles' bound."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "ragged_dot_tf32.cu").read_text()
+
+    def constexpr(name):
+        return int(re.search(r"constexpr int " + name + r" = (\d+);",
+                             src).group(1))
+    assert (constexpr("BK"), constexpr("FWD_BN"), constexpr("FWD_BR"),
+            constexpr("ROW_STEP"), constexpr("FWD_STAGES"),
+            constexpr("FWD_SMEM"), constexpr("WG_BM"), constexpr("WG_BN"),
+            constexpr("WG_STAGES"), constexpr("WG_SMEM"),
+            constexpr("THREADS"), constexpr("MAX_GROUPS"),
+            constexpr("TN"), constexpr("TJ"),
+            constexpr("SPLIT_T_THREADS")) == (
+        rd.TF32_BK, rd.TF32_BN, rd.TF32_BR, rd.TF32_ROW_STEP,
+        rd.TF32_STAGES, rd.TF32_SMEM, rd.TF32_WG_BM, rd.TF32_WG_BN,
+        rd.TF32_WG_STAGES, rd.TF32_WG_SMEM, rd.TMA_THREADS, rd.MAX_GROUPS,
+        rd.TF32_TN, rd.TF32_TJ, rd.TF32_SPLIT_T_THREADS)
+    # 4 stages of a 128 x 32 weight tile and two 144 x 32 lhs planes; 3
+    # of four 128 x 32 planes; 1024 bytes to align
+    assert rd.TF32_SMEM == 4 * 53248 + 1024
+    assert rd.TF32_WG_SMEM == 3 * 65536 + 1024
+    assert rd.tf32_args(512, 14336, 8, 132) == (132, 384, rd.TF32_SMEM)
+    assert rd.tf32_tiles(257, 136, 7) == (2 + 7) * 2
+    assert rd.tf32_args(257, 136, 7, 132)[0] == 18
+    assert rd.tf32_k_pad(4096) == 4096 and rd.tf32_k_pad(24) == 32
+    assert rd.tf32_m_pad(2048, 8) == 32 * (64 + 8)
+    assert rd.tf32_wgrad_split_args(2048, 4096, 14336, 8) == (
+        72, 224, 2, 256, 0)
+    # the padded rows on x: past 2.1M rows y would pass 65535
+    assert rd.tf32_wgrad_split_args(2_200_000, 4096, 14336, 8)[:2] == (
+        68758, 224)
+    # the forward's lhs planes come from B1's split, padded to its BK
+    assert rd.TF32_BK == pk.BK
+    assert rd.tf32_wgrad_args(24, 136, 160, 132)[0] == 132
+    assert rd.TF32_ENTRIES == {"ragged_dot_tf32": (4, 8),
+                               "ragged_dot_wgrad_tf32_split": (5, 10),
+                               "ragged_dot_wgrad_tf32": (4, 8)}
+
+
+@pytest.mark.parametrize("g", [1, 7, 160, 1024])
+def test_tf32_walk_stores_every_row_once(g):
+    """The fp32 forward's walk over (group, 128-column tile, 144-row row
+    tile): each row of each column tile stored by exactly one tile, the
+    zero tail's included; each tile's rows, rounded up to 16, are one
+    wgmma N of 16..144; no more tiles than the grid's bound."""
+    m, sizes = _walk_sizes(g, g)
+    n = 4 * 75                                   # 3 column tiles of 128
+    ncol = -(-n // rd.TF32_BN)
+    grid = 5
+    stored = np.zeros((m, ncol), np.int64)
+    tiles = list(rd.tf32_walk(sizes, m, n, grid))
+    for block, grp, r0, rend, n0 in tiles:
+        assert 0 <= grp <= g and n0 % rd.TF32_BN == 0 and n0 < n
+        rows = min(rd.TF32_BR, rend - r0)
+        assert rows >= 1
+        if grp < g:
+            step = -(-rows // rd.TF32_ROW_STEP) * rd.TF32_ROW_STEP
+            assert 16 <= step <= rd.TF32_BR == 144
+        stored[r0:r0 + rows, n0 // rd.TF32_BN] += 1
+    assert (stored == 1).all()
+    assert grid < len(tiles) <= rd.tf32_tiles(m, n, g)
+    blocks = [t[0] for t in tiles]
+    assert blocks == sorted(blocks)
+    tail = [t for t in tiles if t[1] == g]
+    assert min(t[2] for t in tail) == int(sizes.sum())
+
+
+@pytest.mark.parametrize("g", [1, 7, 160, 1024])
+def test_tf32_wgrad_walk_and_padded_layout(g):
+    """The fp32 weight gradient's walk: every (group, K tile, N tile)
+    exactly once; each group's stages start on a 32-column boundary of
+    the transposed planes, hold its rows and nothing else, and end
+    within Mpad = 32 (cdiv(M, 32) + G) whatever the sizes; the plain
+    transposing split lays the rows out there."""
+    m, sizes = _walk_sizes(g, g + 3)
+    k, n = 4 * 45, 4 * 70                        # 2 K tiles, 3 N tiles
+    seen = {}
+    for block, grp, k0, n0, col, stages in rd.tf32_wgrad_walk(sizes, m, k,
+                                                              n, 3):
+        key = (grp, k0, n0)
+        assert key not in seen and k0 < k and n0 < n
+        seen[key] = (col, stages)
+    nk, nn = -(-k // rd.TF32_WG_BM), -(-n // rd.TF32_WG_BN)
+    assert len(seen) == g * nk * nn == rd.tf32_wgrad_tiles(k, n, g)
+    mp = rd.tf32_m_pad(m, g)
+    ends = np.cumsum(np.clip(sizes, 0, None))
+    at = 0
+    for grp in range(g):
+        col, stages = seen[(grp, 0, 0)]
+        rows = int(min(ends[grp], m) - min(ends[grp] - sizes[grp], m))
+        assert col == at and col % 32 == 0
+        assert stages == -(-rows // 32)
+        at = col + 32 * stages
+    assert at <= mp
+    # the plain split of a few rows: group g's rows at its columns
+    if g <= 7:
+        x = torch.arange(m * 4, dtype=torch.float32).view(m, 4)
+        planes = ref.ragged_dot_wgrad_tf32_split_ref(
+            x, torch.from_numpy(sizes.astype(np.int32)), mp)
+        for grp in range(g):
+            col, stages = seen[(grp, 0, 0)]
+            r0 = int(ends[grp] - sizes[grp])
+            size = int(sizes[grp])
+            assert torch.equal(planes[0, :, col:col + size],
+                               ref.tf32_round(x[r0:r0 + size]).T)
+            assert not planes[:, :, col + size:col + 32 * stages].any()
+
+
+def _tf32x3_stages(a_planes, b_planes):
+    """a (2, P, D), b (2, Q, D) hi/lo planes, D a multiple of 32 -> (P, Q):
+    each 32-deep stage's lo hi + hi lo + hi hi in fp32, the stages' sums
+    then added in fp32, as the route's fresh and running accumulators
+    take them."""
+    (ah, al), (bh, bl) = (x.reshape(x.shape[0], x.shape[1], -1, 32)
+                          for x in (a_planes, b_planes))
+    stage = (torch.einsum("psk,qsk->spq", al, bh)
+             + torch.einsum("psk,qsk->spq", ah, bl)
+             + torch.einsum("psk,qsk->spq", ah, bh))
+    return stage.sum(0)
+
+
+def _tf32x3_forward(lhs, rhs, sizes, transpose_rhs):
+    """The fp32 route's forward emulated: lhs through B1's plain split,
+    each group's weights split as the kernel splits them in registers."""
+    m, k = lhs.shape
+    w = rhs.transpose(1, 2) if transpose_rhs else rhs       # (G, K, N)
+    kp = rd.tf32_k_pad(k)
+    planes = ref.pairwise_kl_split_ref(lhs.unsqueeze(-1), False, kp)[0]
+    out = torch.zeros((m, w.shape[2]), dtype=torch.float32)
+    start = 0
+    for g, size in enumerate(sizes.tolist()):
+        size = max(0, min(size, m - start))
+        if size:
+            wt = torch.zeros((w.shape[2], kp))
+            wt[:, :k] = w[g].T
+            hi = ref.tf32_round(wt)
+            w_planes = torch.stack([hi, ref.tf32_round(wt - hi)])
+            out[start:start + size] = _tf32x3_stages(
+                w_planes, planes[:, start:start + size]).T
+        start += size
+    return out
+
+
+def _tf32x3_wgrad(lhs, grad, sizes):
+    """The fp32 route's weight gradient emulated on the plain transposing
+    split's planes: each group's stages only."""
+    m = lhs.shape[0]
+    g = sizes.shape[0]
+    mp = rd.tf32_m_pad(m, g)
+    lt = ref.ragged_dot_wgrad_tf32_split_ref(lhs, sizes, mp)
+    gt = ref.ragged_dot_wgrad_tf32_split_ref(grad, sizes, mp)
+    _, tile = rd.tf32_wgrad_tables(sizes.tolist(), m)
+    out = torch.zeros((g, lhs.shape[1], grad.shape[1]))
+    for grp in range(g):
+        cols = slice(32 * tile[grp], 32 * tile[grp + 1])
+        out[grp] = _tf32x3_stages(lt[:, :, cols], gt[:, :, cols])
+    return out
+
+
+@pytest.fixture
+def one_thread():
+    """Thousands of tiny products: torch's intra-op threads would spin
+    beside the suite's other workers, so one thread, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("depth", [4096, 14336])
+def test_tf32x3_emulation_matches_jax(depth, one_thread):
+    """The route's arithmetic (hi/lo TF32 splits, three products a 32-deep
+    stage, fp32 sums of the stages) on the forward, the input gradient
+    and the weight gradient, held against ``jax.lax.ragged_dot`` and its
+    VJP within 1e-5 x max |out|: the forward at depth K = ``depth``, the
+    input gradient at depth N = ``depth`` (mixtral-8x7b's depths), few
+    rows and narrow outputs; the weight gradient of both, over the groups'
+    rows."""
+    rng = np.random.default_rng(depth)
+    sizes = np.array([5, 0, 9, 6], np.int32)     # 4 rows past the sum
+    m, w = 24, 8
+    ts = torch.from_numpy(sizes)
+    for k, n in ((depth, w), (w, depth)):
+        lhs = rng.normal(size=(m, k)).astype(np.float32)
+        rhs = (rng.normal(size=(4, k, n)) / np.sqrt(k)).astype(np.float32)
+        dout = rng.normal(size=(m, n)).astype(np.float32)
+        out, vjp = jax.vjp(lambda a, b: jax.lax.ragged_dot(a, b, sizes),
+                           jnp.asarray(lhs), jnp.asarray(rhs))
+        d_lhs, d_rhs = vjp(jnp.asarray(dout))
+        tl, tr, td = (torch.from_numpy(x) for x in (lhs, rhs, dout))
+        wgrad = _tf32x3_wgrad(tl, td, ts)
+        for got, want in ((_tf32x3_forward(tl, tr, ts, False), out),
+                          (_tf32x3_forward(td, tr, ts, True), d_lhs),
+                          (wgrad, d_rhs)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        assert not wgrad[1].any()                # the empty group
