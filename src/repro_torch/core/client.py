@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import trace
 from repro_torch.core import wire
 from repro_torch.core.distill import sqmd_loss
 from repro_torch.core.messenger import cohort_messengers
@@ -169,28 +170,32 @@ def cohort_step(model: nn.Module, optimizer: Optimizer,
                 opt_state, batch_x: torch.Tensor,
                 batch_y: torch.Tensor, ref_x: torch.Tensor,
                 targets: torch.Tensor, trainable: torch.Tensor,
-                rho: float, use_ref: bool):
+                rho: float, use_ref: bool, cohort: Optional[str] = None):
     """One optimizer step for a whole cohort, in place on ``model``.
 
     batch_x (n_c,B,L), batch_y (n_c,B), targets (n_c,R,C) per-client
     distill targets, trainable (n_c,) bool. Rows outside ``trainable``
     keep their params AND every optimizer-state leaf, the per-client step
-    counter included, bit for bit. Returns (opt_state, per-client loss)."""
+    counter included, bit for bit. ``cohort`` names the family on the
+    step's spans. Returns (opt_state, per-client loss)."""
     params = list(model.parameters())
     with torch.enable_grad():
-        loss = sqmd_loss(model, batch_x, batch_y, ref_x, targets, rho,
-                         use_ref)
-        grads = torch.autograd.grad(loss.sum(), params)
-    with torch.no_grad():
-        updates, new_state = optimizer.update(grads, opt_state,
-                                              [p.detach() for p in params])
-        on = trainable.to(torch.bool)
-        for p, u in zip(params, updates):
-            p.copy_(torch.where(_rows(on, p), p + u.to(p.dtype), p))
-    # every leaf of the state is gated, the step counter included: a
-    # woken client resumes with its own Adam bias correction
-    state = type(new_state)(*(_gate(on, a, b)
-                              for a, b in zip(opt_state, new_state)))
+        with trace.span("client.forward", cohort=cohort):
+            loss = sqmd_loss(model, batch_x, batch_y, ref_x, targets, rho,
+                             use_ref)
+        with trace.span("client.backward", cohort=cohort):
+            grads = torch.autograd.grad(loss.sum(), params)
+    with trace.span("client.optimizer", cohort=cohort):
+        with torch.no_grad():
+            updates, new_state = optimizer.update(
+                grads, opt_state, [p.detach() for p in params])
+            on = trainable.to(torch.bool)
+            for p, u in zip(params, updates):
+                p.copy_(torch.where(_rows(on, p), p + u.to(p.dtype), p))
+        # every leaf of the state is gated, the step counter included: a
+        # woken client resumes with its own Adam bias correction
+        state = type(new_state)(*(_gate(on, a, b)
+                                  for a, b in zip(opt_state, new_state)))
     return state, loss.detach()
 
 
@@ -213,17 +218,20 @@ def sharded_cohort_step(cohort: Cohort, idx: torch.Tensor,
     rows must be False). A shard's ghost rows take the last real
     client's indices (``cohort_batch_padded``), so its gather stays
     inside its own rows."""
+    name = cohort.family_name
     for sh in cohort.shards:
         lo, hi = sh.start, sh.start + sh.n_rows
         dev = sh.device
-        # the shard's real rows' indices (the last real client's for a
-        # shard of ghosts only), edge-replicated over its ghosts
-        real = idx[min(lo, cohort.n_clients - 1):hi].to(dev)
-        batch = cohort_batch_padded(sh.data, real)
+        with trace.span("client.batch", cohort=name):
+            # the shard's real rows' indices (the last real client's for
+            # a shard of ghosts only), edge-replicated over its ghosts
+            real = idx[min(lo, cohort.n_clients - 1):hi].to(dev)
+            batch = cohort_batch_padded(sh.data, real)
+            args = (ref_x.to(dev), targets[lo:hi].to(dev),
+                    trainable[lo:hi].to(dev))
         sh.opt_state, _ = cohort_step(
             sh.model, cohort.optimizer, sh.opt_state, batch["x"],
-            batch["y"], ref_x.to(dev), targets[lo:hi].to(dev),
-            trainable[lo:hi].to(dev), rho, use_ref)
+            batch["y"], *args, rho, use_ref, cohort=name)
 
 
 def sharded_messenger_upload(cohort: Cohort, ref_x: torch.Tensor,

@@ -49,7 +49,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch import Device, resolve_device
+from repro_torch import Device, resolve_device, trace
 from repro_torch.convert import load_cohort_params, static_weights_from_numpy
 from repro_torch.core import graph as graph_mod
 from repro_torch.core import wire
@@ -384,17 +384,20 @@ class FederationEngine:
         (distilling toward the targets from round 1 on, if the policy uses
         the reference set), then, every ``interval`` rounds, their upload,
         which fires the server; other rounds only mark them active."""
-        fed = self.fed
-        t = float(rnd)
-        self.clock.advance(t)
-        avail = np.asarray(self.schedule.available(rnd, fed.n_clients), bool)
-        uses_ref = self.policy.uses_reference
-        self.clients.local_round(avail, use_ref=uses_ref and rnd > 0)
-        if uses_ref and rnd % self.policy.interval == 0:
-            self.bus.deliver(t, self.clients.collect_messengers(avail), avail)
-        else:
-            self.bus.observe(t, avail)
-        self._publish(t)
+        with trace.span("round", round=rnd):
+            fed = self.fed
+            t = float(rnd)
+            self.clock.advance(t)
+            avail = np.asarray(self.schedule.available(rnd, fed.n_clients),
+                               bool)
+            uses_ref = self.policy.uses_reference
+            self.clients.local_round(avail, use_ref=uses_ref and rnd > 0)
+            if uses_ref and rnd % self.policy.interval == 0:
+                self.bus.deliver(t, self.clients.collect_messengers(avail),
+                                 avail)
+            else:
+                self.bus.observe(t, avail)
+            self._publish(t)
 
     def evaluate(self, splits: Sequence[ClientSplit],
                  which: str = "test") -> np.ndarray:

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.quality import BIG
 from repro_torch.core.similarity import similarity_matrix
 
@@ -58,7 +59,8 @@ def candidate_pool(candidates: torch.Tensor, k: int):
     up to k columns: (pool (B,) indices, valid (B,) bool), or None for an
     empty pool. The pool's size depends on the mask's values, so it is
     staged here, apart from the selection over it."""
-    pool = torch.nonzero(candidates).flatten()
+    with trace.sync("server.pool"):
+        pool = torch.nonzero(candidates).flatten()
     if pool.numel() == 0 or k == 0:
         return None
     size = pool.numel()

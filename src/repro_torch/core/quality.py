@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 
 BIG = 1e30
@@ -32,5 +33,6 @@ def candidate_mask(quality: torch.Tensor, active: torch.Tensor,
     n = quality.shape[0]
     idx = torch.sort(scores, stable=True).indices[:min(q, n)]
     mask = torch.zeros((n,), dtype=torch.bool, device=quality.device)
-    mask[idx] = True
+    with trace.sync("server.candidates"):     # True is copied from the host
+        mask[idx] = True
     return mask & active

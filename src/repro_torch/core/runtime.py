@@ -35,6 +35,7 @@ from typing import (Any, Callable, Dict, List, Optional, Tuple, Type,
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import wire
 from repro_torch.core.client import (sharded_cohort_step,
                                      sharded_messenger_upload)
@@ -277,6 +278,7 @@ class ClientRuntime:
                 place_cohort_stacks(coh, cohort_mesh(mesh, coh.n_clients))
 
     def _indices(self, ci: int, coh) -> torch.Tensor:
+        """(n_c, B) batch indices on the cohort's first shard's device."""
         n_c, m = coh.n_clients, coh.shards[0].data["y"].shape[1]
         b = self.config.batch_size
         if self.batch_indices is not None:
@@ -284,30 +286,39 @@ class ClientRuntime:
             if idx.shape != (n_c, b):
                 raise ValueError(f"batch_indices gave shape {idx.shape} for "
                                  f"cohort {ci}, expected {(n_c, b)}")
-            return torch.from_numpy(idx)
+            with trace.sync("client.batch_indices"):
+                return torch.from_numpy(idx).to(coh.device)
         return draw_batch_indices(self.fed.generator, n_c, m, b)
 
     def local_round(self, mask_np: np.ndarray, use_ref: bool) -> None:
         """One wake of the masked clients, in place."""
-        fed = self.fed
-        n, r, c = fed.server.repo_logp.shape
-        dev = fed.server.repo_logp.device
-        if fed.targets is None:
-            fed.targets = torch.full((n, r, c), 1.0 / c,
-                                     dtype=torch.float32, device=dev)
-        self.ever_woken |= mask_np
-        avail = torch.as_tensor(mask_np, dtype=torch.bool, device=dev)
-        for _ in range(self.config.local_steps):
-            for ci, coh in enumerate(fed.cohorts):
-                rows = torch.as_tensor(coh.padded_ids, device=dev)
-                # ghost rows alias the last real client's id; force them
-                # out of the trainable mask regardless
-                on = avail[rows] & (torch.arange(coh.n_rows, device=dev)
-                                    < coh.n_clients)
-                sharded_cohort_step(coh, self._indices(ci, coh), fed.ref_x,
-                                    fed.targets[rows], on, self.policy.rho,
-                                    use_ref)
-            self.step += 1
+        with trace.span("client.step"):
+            fed = self.fed
+            n, r, c = fed.server.repo_logp.shape
+            dev = fed.server.repo_logp.device
+            if fed.targets is None:
+                fed.targets = torch.full((n, r, c), 1.0 / c,
+                                         dtype=torch.float32, device=dev)
+            self.ever_woken |= mask_np
+            with trace.sync("client.mask"):
+                avail = torch.as_tensor(mask_np, dtype=torch.bool,
+                                        device=dev)
+            for _ in range(self.config.local_steps):
+                for ci, coh in enumerate(fed.cohorts):
+                    with trace.span("client.batch", cohort=coh.family_name):
+                        with trace.sync("client.rows"):
+                            rows = torch.as_tensor(coh.padded_ids,
+                                                   device=dev)
+                        # ghost rows alias the last real client's id;
+                        # force them out of the trainable mask regardless
+                        on = avail[rows] & (
+                            torch.arange(coh.n_rows, device=dev)
+                            < coh.n_clients)
+                        idx = self._indices(ci, coh)
+                        targets = fed.targets[rows]
+                    sharded_cohort_step(coh, idx, fed.ref_x, targets, on,
+                                        self.policy.rho, use_ref)
+                self.step += 1
 
     @property
     def uplink(self) -> wire.Codec:
@@ -319,20 +330,24 @@ class ClientRuntime:
         masked out of the merge). The payload's tensors are fresh — none
         is a view of a parameter — so an upload held in flight across
         later wakes still carries the messengers of its own wake."""
-        fed = self.fed
-        n, r, c = fed.server.repo_logp.shape
-        parts, rows = [], []
-        for coh in fed.cohorts:
-            if not mask_np[coh.client_ids].any():
-                continue
-            got, ids = sharded_messenger_upload(coh, fed.ref_x, self.uplink,
-                                                fed.server.repo_logp.device)
-            parts += got
-            rows += ids
-        if not parts:
-            return self.uplink.encode(torch.zeros(
-                (n, r, c), device=fed.server.repo_logp.device))
-        return wire.assemble(parts, rows, n)
+        with trace.span("upload.collect"):
+            fed = self.fed
+            n, r, c = fed.server.repo_logp.shape
+            parts, rows = [], []
+            for coh in fed.cohorts:
+                if not mask_np[coh.client_ids].any():
+                    continue
+                with trace.span("upload.messengers", cohort=coh.family_name):
+                    got, ids = sharded_messenger_upload(
+                        coh, fed.ref_x, self.uplink,
+                        fed.server.repo_logp.device)
+                parts += got
+                rows += ids
+            if not parts:
+                return self.uplink.encode(torch.zeros(
+                    (n, r, c), device=fed.server.repo_logp.device))
+            with trace.span("upload.assemble"):
+                return wire.assemble(parts, rows, n)
 
 
 # --------------------------------------------------------------------------
@@ -405,24 +420,26 @@ class ServerBus:
         per row: an arrival older than what a row already holds is
         superseded and skipped. The trigger is consulted even for an
         empty batch."""
-        if not isinstance(msg, wire.Payload):
-            msg = self.uplink.encode(torch.as_tensor(
-                msg, device=self.fed.server.repo_logp.device))
-        sent = np.asarray(uploaded, bool)
-        self.bytes_up[sent] += wire.bytes_per_messenger(msg)
-        pt = t if produced_at is None else produced_at
-        up = sent & (pt >= self.last_upload_t)
-        fed = self.fed
-        fed.server = upload_messengers(fed.server, msg, torch.as_tensor(up))
-        self.last_upload_t = np.where(up, pt, self.last_upload_t)
-        k = int(up.sum())
-        self.n_uploads += k
-        self.uploads_since_fire += k
-        self.fresh_since_fire |= up
-        if self.trigger.should_fire(t, self):
+        with trace.span("upload.merge"):
+            if not isinstance(msg, wire.Payload):
+                msg = self.uplink.encode(torch.as_tensor(
+                    msg, device=self.fed.server.repo_logp.device))
+            sent = np.asarray(uploaded, bool)
+            self.bytes_up[sent] += wire.bytes_per_messenger(msg)
+            pt = t if produced_at is None else produced_at
+            up = sent & (pt >= self.last_upload_t)
+            fed = self.fed
+            fed.server = upload_messengers(fed.server, msg,
+                                           torch.as_tensor(up))
+            self.last_upload_t = np.where(up, pt, self.last_upload_t)
+            k = int(up.sum())
+            self.n_uploads += k
+            self.uploads_since_fire += k
+            self.fresh_since_fire |= up
+            fires = bool(self.trigger.should_fire(t, self))
+        if fires:
             self.fire(t)
-            return True
-        return False
+        return fires
 
     def tick(self, t: float) -> bool:
         """Wall tick: fire if the trigger wants to and new uploads exist
@@ -435,40 +452,49 @@ class ServerBus:
 
     def fire(self, t: float) -> None:
         """grade -> build graph -> emit targets, then the downlink."""
-        fed = self.fed
-        uploaded = self.fresh_since_fire.copy() if self.delta else None
-        fed.server, targets, self.last_graph = policy_round(
-            fed.server, self.policy, fed.ref_y, uploaded=uploaded)
-        payload = self.downlink.encode(targets, domain="prob")
-        decoded = wire.decode(payload)
-        recv = self.policy.receivers(fed.server, self.last_graph)
-        if not bool(recv.all()):
-            # nothing is sent to excluded rows, so nothing may arrive: a
-            # lossy decode would otherwise turn their zero target rows
-            # into near-uniform distributions they train toward
-            decoded = torch.where(recv[:, None, None], decoded,
-                                  torch.zeros_like(decoded))
-        fed.targets = decoded
-        self.bytes_down[recv.cpu().numpy()] += \
-            wire.bytes_per_messenger(payload)
-        self.n_triggers += 1
-        self.last_staleness = self.staleness(t)
-        self.uploads_since_fire = 0
-        self.fresh_since_fire[:] = False
+        with trace.span("server.fire"):
+            fed = self.fed
+            uploaded = self.fresh_since_fire.copy() if self.delta else None
+            fed.server, targets, self.last_graph = policy_round(
+                fed.server, self.policy, fed.ref_y, uploaded=uploaded)
+            with trace.span("server.downlink"):
+                payload = self.downlink.encode(targets, domain="prob")
+                decoded = wire.decode(payload)
+                recv = self.policy.receivers(fed.server, self.last_graph)
+                with trace.sync("server.receivers_all"):
+                    everyone = bool(recv.all())
+                if not everyone:
+                    # nothing is sent to excluded rows, so nothing may
+                    # arrive: a lossy decode would otherwise turn their
+                    # zero target rows into near-uniform distributions
+                    # they train toward
+                    decoded = torch.where(recv[:, None, None], decoded,
+                                          torch.zeros_like(decoded))
+                fed.targets = decoded
+                with trace.sync("server.receivers"):
+                    recv_np = recv.cpu().numpy()
+                self.bytes_down[recv_np] += wire.bytes_per_messenger(payload)
+            self.n_triggers += 1
+            with trace.span("server.staleness"):
+                self.last_staleness = self.staleness(t)
+            self.uploads_since_fire = 0
+            self.fresh_since_fire[:] = False
 
     def observe(self, t: float, mask_np: np.ndarray) -> None:
         """A round without communication (off the interval, or a policy
         that uses no reference): mark the masked clients active and
         advance the server's round counter; nothing fires."""
         srv = self.fed.server
-        up = torch.as_tensor(np.asarray(mask_np, bool),
-                             device=srv.active.device)
+        with trace.sync("server.observe"):
+            up = torch.as_tensor(np.asarray(mask_np, bool),
+                                 device=srv.active.device)
         self.fed.server = srv._replace(active=srv.active | up,
                                        round=srv.round + 1)
 
     def staleness(self, now: float) -> dict:
-        return staleness_summary(self.last_upload_t,
-                                 self.fed.server.active.cpu().numpy(), now)
+        with trace.sync("server.staleness"):
+            active = self.fed.server.active.cpu().numpy()
+        return staleness_summary(self.last_upload_t, active, now)
 
     # -- checkpointable state ----------------------------------------------
     def state_dict(self) -> dict:

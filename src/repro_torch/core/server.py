@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch import Device, resolve_device
+from repro_torch import Device, resolve_device, trace
 from repro_torch.core import quality as quality_mod
 from repro_torch.core import wire
 
@@ -67,9 +67,11 @@ def upload_messengers(state: ServerState,
     it. Clients that skipped this round keep their STALE row — the
     paper's asynchronous semantics."""
     dev = state.repo_logp.device
-    up = torch.as_tensor(uploaded, dtype=torch.bool).to(dev)
+    with trace.sync("upload.mask"):
+        up = torch.as_tensor(uploaded, dtype=torch.bool).to(dev)
     if isinstance(messengers_logp, wire.Payload):
-        rows = torch.nonzero(up).flatten()
+        with trace.sync("upload.rows"):
+            rows = torch.nonzero(up).flatten()
         active = state.active | up
         if rows.numel() == 0:
             return state._replace(active=active)
@@ -112,12 +114,15 @@ def policy_round(state: ServerState, policy, ref_labels: torch.Tensor,
     policy round: the policy may then take its incremental graph update
     (``build_graph_delta``); ``None`` always rebuilds. Returns (new_state,
     targets (N,R,C) fp32, CollaborationGraph)."""
-    g = policy.grade(state, ref_labels)
-    if uploaded is None:
-        graph = policy.build_graph(state, g)
-    else:
-        graph = policy.build_graph_delta(state, g, uploaded)
-    targets = policy.emit_targets(state, graph)
+    with trace.span("server.grade"):
+        g = policy.grade(state, ref_labels)
+    with trace.span("server.graph"):
+        if uploaded is None:
+            graph = policy.build_graph(state, g)
+        else:
+            graph = policy.build_graph_delta(state, g, uploaded)
+    with trace.span("server.targets"):
+        targets = policy.emit_targets(state, graph)
     return policy.update_state(state, g, graph), targets, graph
 
 

@@ -35,6 +35,7 @@ from typing import Dict, Sequence, Tuple, Type, Union
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import ops
 
 _DOMAINS = ("log", "prob")
@@ -184,10 +185,11 @@ def assemble(parts: Sequence[Payload], rows: Sequence, n: int) -> Payload:
             raise ValueError("assemble: parts disagree on codec/shape")
     base = {k: a.new_zeros((n,) + tuple(a.shape[1:]))
             for k, a in first.arrays.items()}
+    dev = next(iter(base.values())).device
     for part, ids in zip(parts, rows):
+        with trace.sync("upload.ids"):
+            idx = torch.as_tensor(ids, dtype=torch.long, device=dev)
         for k in base:
-            idx = torch.as_tensor(ids, dtype=torch.long,
-                                  device=base[k].device)
             base[k][idx] = part.arrays[k]
     return Payload(first.codec, first.domain, (n,) + tuple(first.shape[1:]),
                    base)
