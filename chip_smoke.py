@@ -276,6 +276,14 @@ Phases, in order; any failure exits nonzero and no result line is printed:
     engine's state must lie on the card, and serve_decode must launch no
     kernel of the port; a ``{"walkthroughs": ...}`` line after the total
     wall time gives each run's seconds and launches;
+28. the client step's CUDA graphs: the benchmark's configuration
+    (``portbench``'s ``sqmd-sc-resnet1d-n128``: ResNet-1D 8/20/50 at
+    width 16, N=128) in both its traffic mixes, four rounds with the
+    graphs and four with an eager twin calling ``cohort_step`` directly
+    on the same inputs: the largest gap of params and of momentum
+    between the two, each arm's host ms a round of ``client.step`` and
+    its peak card memory; fails unless round 2 captured one graph a
+    cohort and round 3 replayed them;
 13. printed last: a ``{"kernels": [...]}`` summary line (B1, B2 and the
     gather's launches from phase 5, B4's three kernels' from phase 9,
     the dense Eq. 5 route's from phase 12's FedMD federation, each plus
@@ -318,6 +326,11 @@ the peak memory on the card of phase 22's fp32 twins of the dropless MoE
 and of one fp32 dropless FFN forward and backward of each MoE
 architecture at its published widths over phase 22's 8 x 128 tokens
 (``chiprun_out/fp32_memory.json``; no result line).
+
+    python3 chip_smoke.py --step-graph
+
+runs phase 28 alone, after the build (``chiprun_out/step_graph.json``;
+no result line).
 
     python3 chip_smoke.py --ragged-variants [fp32]
 
@@ -5132,6 +5145,125 @@ def walkthrough_phase(dev) -> dict:
     return {"walkthroughs": out, "launches": launches, "wall_s": wall}
 
 
+# phase 28: the client step as CUDA graphs (repro_torch/step_graph.py)
+STEP_GRAPH_CELLS = ("sc-resnet1d-n128.all-on", "sc-resnet1d-n128.dropout50")
+STEP_GRAPH_ROUNDS = 4
+STEP_GRAPH_SEED = 2_718_281_903
+
+
+def _eager_cohort_step(cohort, idx, ref_x, targets, trainable, rho,
+                       use_ref):
+    """Every shard's ``cohort_step`` called directly: the eager twin."""
+    from repro_torch.core.client import cohort_step
+    from repro_torch.data.pipeline import cohort_batch_padded
+    for sh in cohort.shards:
+        lo, hi = sh.start, sh.start + sh.n_rows
+        batch = cohort_batch_padded(
+            sh.data, idx[min(lo, cohort.n_clients - 1):hi])
+        sh.opt_state, _ = cohort_step(
+            sh.model, cohort.optimizer, sh.opt_state, batch["x"],
+            batch["y"], ref_x, targets[lo:hi], trainable[lo:hi], rho,
+            use_ref)
+
+
+def step_graph_arm(cell, inputs, dev, eager: bool) -> dict:
+    """Four rounds of the cell's engine, recorded: host ms a round of
+    ``client.step``, the ``graph.*`` counters, the peak card memory, and
+    the final params and momentum on the host."""
+    from portbench import program
+    from repro_torch import trace
+    from repro_torch.core import runtime
+    from repro_torch.optim import state_tensors
+    step = runtime.sharded_cohort_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = program.build(inputs, dev, cell.root)
+    step_ms, counters = [], []
+    if eager:
+        runtime.sharded_cohort_step = _eager_cohort_step
+    try:
+        for rnd in range(STEP_GRAPH_ROUNDS):
+            with trace.recording() as rec:
+                engine.run_round(rnd)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * rec.names["client.step"]["total_s"])
+            counters.append({k: v for k, v in rec.counters.items()
+                             if k.startswith("graph.")})
+    finally:
+        runtime.sharded_cohort_step = step
+    out = {"client_step_ms": step_ms, "counters": counters,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "params": [p.detach().cpu() for c in engine.fed.cohorts
+                      for p in c.model.parameters()],
+           "momentum": [t.cpu() for c in engine.fed.cohorts
+                        for t in state_tensors(c.opt_state)[1:]]}
+    del engine
+    return out
+
+
+def step_graph_phase(dev) -> dict:
+    """Phase 28: the benchmark's configuration in both traffic mixes,
+    four rounds with the step's CUDA graphs and four with the eager twin
+    on the same inputs: the largest gaps of params and momentum, host ms
+    of ``client.step`` a round and the peak card memory of each arm."""
+    from portbench import spec
+    from portbench.inputs import make_inputs
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name in STEP_GRAPH_CELLS:
+        cell = spec.load_cell(name)
+        inputs = make_inputs(cell.config, cell.traffic, STEP_GRAPH_SEED,
+                             dev, cell.root)
+        arms = {arm: step_graph_arm(cell, inputs, dev, arm == "eager")
+                for arm in ("graph", "eager")}
+        g, e = arms["graph"], arms["eager"]
+        n = len(cell.config["families"])
+        check(g["counters"][2] == {"graph.captures": n, "graph.replays": n}
+              and g["counters"][3] == {"graph.replays": n}
+              and not any(e["counters"]),
+              f"{name}: graph counters {g['counters']}, eager twin's "
+              f"{e['counters']}")
+        gap = {what: max(float((a - b).abs().max())
+                         for a, b in zip(g[what], e[what]))
+               for what in ("params", "momentum")}
+        row = {"card": CARD, "max_abs_gap": gap,
+               **{f"{arm}_client_step_ms": arms[arm]["client_step_ms"]
+                  for arm in arms},
+               **{f"{arm}_peak_gib": arms[arm]["peak_bytes"] / 2 ** 30
+                  for arm in arms},
+               "graph_counters": g["counters"]}
+        print(f"  {name}: max |gap| params {gap['params']:.3e} momentum "
+              f"{gap['momentum']:.3e}; client.step host ms a round, graph "
+              f"{[round(x, 2) for x in g['client_step_ms']]}, eager "
+              f"{[round(x, 2) for x in e['client_step_ms']]}; peak "
+              f"{row['graph_peak_gib']:.4f} / {row['eager_peak_gib']:.4f} "
+              f"GiB ({CARD})")
+        out[name] = row
+        del arms, g, e, inputs
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 28 wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def step_graph_alone() -> int:
+    """``--step-graph``: phase 28 alone, after the build."""
+    global CARD
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    CARD = smi("name,power.limit")
+    print(CARD)
+    build.build_all()
+    res = step_graph_phase(torch.device("cuda"))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "step_graph.json").write_text(json.dumps(res, indent=2,
+                                                    default=float))
+    return 0
+
+
 # the dropless MoE path timed against another checkout (--moe-against):
 # phase 21's cuts (mixtral-8x7b 4 layers, deepseek-v2-236b 2) at the
 # published widths, bf16
@@ -5542,6 +5674,8 @@ def main() -> int:
         return ragged_variants()
     if sys.argv[1:] == ["--ragged-variants", "fp32"]:
         return ragged_variants(torch.float32)
+    if sys.argv[1:] == ["--step-graph"]:
+        return step_graph_alone()
     if len(sys.argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -5750,6 +5884,10 @@ def main() -> int:
     # and the walkthroughs' (none of the grouped product's: checked)
     for name, n in walkthroughs["launches"].items():
         launches[name] += n
+
+    print("[28] the client step's CUDA graphs against an eager twin, the "
+          "benchmark's configuration in both traffic mixes")
+    step_graphs = step_graph_phase(dev)
     main_path = [name for name in SOURCES
                  if rows[name].get("main_path", True)]
     check(all(launches[name] > 0 for name in main_path),
@@ -5787,6 +5925,7 @@ def main() -> int:
          "lm_training": lm_training, "sharding": sharding,
          "analysis": analysis, "lm_dryrun": lm_dryrun,
          "ragged_dot": ragged, "walkthroughs": walkthroughs,
+         "step_graphs": step_graphs,
          "wall_s": time.perf_counter() - t_start},
         indent=2, default=float))
     print(f"  total wall time {time.perf_counter() - t_start:.1f} s")

@@ -9,11 +9,12 @@ client axis, so each gets exactly its own gradient (the counterpart of
 the reference's ``vmap(value_and_grad)``). Params are updated in place.
 A cohort is one or more shards of its rows (``repro_torch.sharding``);
 ``sharded_cohort_step`` and ``sharded_messenger_upload`` run every shard
-on its own device.
+on its own device; on the card the step is replayed as a CUDA graph.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -206,6 +207,20 @@ def cohort_messenger_upload(model: nn.Module, ref_x: torch.Tensor,
     return cohort_messengers(model, ref_x, codec=codec)
 
 
+def _shard_step(sh: CohortShard, optimizer: Optimizer, rho: float,
+                use_ref: bool, cohort: str, inputs, state):
+    """``cohort_step`` of shard ``sh`` from ``state`` on the call's inputs
+    on its device (its real rows' batch indices, ref_x, its targets and
+    trainable rows), the batch gather included; the new state."""
+    real, ref_x, targets, trainable = inputs
+    with trace.span("client.batch", cohort=cohort):
+        batch = cohort_batch_padded(sh.data, real)
+    state, _ = cohort_step(sh.model, optimizer, state, batch["x"],
+                           batch["y"], ref_x, targets, trainable, rho,
+                           use_ref, cohort=cohort)
+    return state
+
+
 def sharded_cohort_step(cohort: Cohort, idx: torch.Tensor,
                         ref_x: torch.Tensor, targets: torch.Tensor,
                         trainable: torch.Tensor, rho: float,
@@ -217,21 +232,30 @@ def sharded_cohort_step(cohort: Cohort, idx: torch.Tensor,
     (n_rows, R, C) and trainable (n_rows,) over the padded rows (ghost
     rows must be False). A shard's ghost rows take the last real
     client's indices (``cohort_batch_padded``), so its gather stays
-    inside its own rows."""
+    inside its own rows. On the card a shard's step is captured as one
+    CUDA graph on its second call with the same shapes, storage, ``rho``
+    and ``use_ref``, and replayed from then on (``repro_torch.step_graph``:
+    its optimizer state is then updated in place); off the card it is
+    ``cohort_step``."""
     name = cohort.family_name
     for sh in cohort.shards:
         lo, hi = sh.start, sh.start + sh.n_rows
         dev = sh.device
-        with trace.span("client.batch", cohort=name):
-            # the shard's real rows' indices (the last real client's for
-            # a shard of ghosts only), edge-replicated over its ghosts
-            real = idx[min(lo, cohort.n_clients - 1):hi].to(dev)
-            batch = cohort_batch_padded(sh.data, real)
-            args = (ref_x.to(dev), targets[lo:hi].to(dev),
-                    trainable[lo:hi].to(dev))
-        sh.opt_state, _ = cohort_step(
-            sh.model, cohort.optimizer, sh.opt_state, batch["x"],
-            batch["y"], *args, rho, use_ref, cohort=name)
+        # the shard's real rows' indices (the last real client's for a
+        # shard of ghosts only), edge-replicated over its ghosts
+        inputs = (idx[min(lo, cohort.n_clients - 1):hi], ref_x,
+                  targets[lo:hi], trainable[lo:hi])
+        step = functools.partial(_shard_step, sh, cohort.optimizer, rho,
+                                 use_ref, name)
+        if dev.type == "cuda":
+            sh.opt_state = sh.graphs.step(
+                step, inputs, sh.opt_state,
+                fixed=[*sh.model.parameters(), *sh.model.buffers(),
+                       *sh.data.values()],
+                static=(rho, use_ref, cohort.optimizer), device=dev,
+                cohort=name)
+        else:
+            sh.opt_state = step([t.to(dev) for t in inputs], sh.opt_state)
 
 
 def sharded_messenger_upload(cohort: Cohort, ref_x: torch.Tensor,

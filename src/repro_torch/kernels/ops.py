@@ -63,6 +63,19 @@ def route_counts() -> Dict[str, int]:
             for name, (mod, attr) in _ROUTE_COUNTERS.items()}
 
 
+def all_counts() -> Dict[str, int]:
+    """``launch_counts`` and ``route_counts`` in one."""
+    return {**launch_counts(), **route_counts()}
+
+
+def add_launch_counts(launches: Dict[str, int]) -> None:
+    """Add ``launches`` (by a name of ``all_counts``) to the counters:
+    the launches of a replayed CUDA graph, which no wrapper sees."""
+    for name, n in launches.items():
+        mod, attr = _COUNTERS.get(name) or _ROUTE_COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 def reset_launch_counts() -> None:
     for mod, attr in (*_COUNTERS.values(), *_ROUTE_COUNTERS.values()):
         setattr(mod, attr, 0)

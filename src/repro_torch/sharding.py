@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch import Device, resolve_device
+from repro_torch.step_graph import StepGraphs
 from repro_torch.tree import tree_map, tree_map_with_path
 
 CLIENT_AXIS = "clients"
@@ -135,11 +136,14 @@ def device_scope(dev: torch.device):
 @dataclasses.dataclass
 class CohortShard:
     """One device's block of a cohort's stacked rows: rows
-    ``start .. start + n_rows`` of the ghost-padded stack."""
+    ``start .. start + n_rows`` of the ghost-padded stack. On the card
+    its steps are captured and replayed as CUDA graphs (``graphs``)."""
     model: nn.Module                     # stacked (n_rows, ...) params
     opt_state: Any                       # stacked, per-row step
     data: Dict[str, torch.Tensor]        # {x (n_rows,M,L), y (n_rows,M)}
     start: int = 0
+    graphs: StepGraphs = dataclasses.field(
+        default_factory=StepGraphs, init=False, repr=False, compare=False)
 
     @property
     def device(self) -> torch.device:

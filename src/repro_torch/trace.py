@@ -10,7 +10,8 @@ card has caught up (a pageable host-to-device copy, ``.cpu()``,
 ``.item()``, ``bool()`` of a device tensor, ``torch.nonzero``); a
 recording counts it under ``host_syncs.<site>``. A site is counted
 whenever the program passes it, on any device; on the card each pass
-blocks.
+blocks. ``count(name, n)`` adds to a counter of the recording's own
+(``graph.replays`` and the like).
 
 ``recording()`` turns recording on for its block and returns the
 ``Recording``: the spans in the order they opened, per-name ``calls``,
@@ -138,6 +139,13 @@ def sync(site: str):
     if _active is None and not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(SYNC + site, {}, site)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the recording's counter ``name``; nothing when no
+    recording is on."""
+    if _active is not None:
+        _active.counters[name] = _active.counters.get(name, 0) + n
 
 
 @contextlib.contextmanager

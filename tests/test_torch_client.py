@@ -8,6 +8,8 @@ bit-identical to what went in, every optimizer-state leaf included. The
 numpy-only data and schedule modules must reproduce the reference
 exactly.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,15 +29,17 @@ from repro.data import sc_like as jax_sc_like
 from repro.data.pipeline import cohort_batch as jax_cohort_batch
 from repro.models.mlp import hetero_mlp_zoo as jax_zoo
 from repro.optim import sgd as jax_sgd
+from repro_torch import trace
 from repro_torch.convert import cohort_params_from_numpy
-from repro_torch.core.client import (cohort_accuracy, cohort_accuracy_masked,
+from repro_torch.core.client import (Cohort, cohort_accuracy,
+                                     cohort_accuracy_masked,
                                      cohort_messenger_upload, cohort_pred,
-                                     cohort_step)
+                                     cohort_step, sharded_cohort_step)
 from repro_torch.core.schedules import StagedJoin
 from repro_torch.data import (cohort_batch, make_splits, pack_cohort,
                               pad_like, sc_like)
 from repro_torch.models import CohortMLP, hetero_mlp_zoo
-from repro_torch.optim import sgd
+from repro_torch.optim import sgd, state_tensors
 
 N_C, B, R, L, C = 5, 6, 7, 12, 3
 RHO = 0.8
@@ -115,6 +119,49 @@ def test_cohort_step_matches_reference(family, use_ref):
     for m in state.momentum:
         assert float(m[frozen].abs().sum()) == 0.0
     np.testing.assert_array_equal(state.step.numpy(), np.where(frozen, 0, 2))
+
+
+def test_sharded_step_on_the_cpu_is_cohort_step():
+    """Off the card ``sharded_cohort_step`` is ``cohort_step`` on the
+    gathered batch, bit for bit, and captures nothing."""
+    n, m = 2, 10
+    gen = torch.Generator().manual_seed(3)
+    model = CohortMLP(hetero_mlp_zoo(L, C)["mlp-s"], n, device="cpu")
+    twin = copy.deepcopy(model)
+    opt = sgd(0.05, momentum=0.9)
+    data = {"x": torch.randn((n, m, L), generator=gen),
+            "y": torch.randint(0, C, (n, m), generator=gen)}
+    idx = torch.randint(0, m, (n, B), generator=gen)
+    ref_x = torch.randn((R, L), generator=gen)
+    targets = torch.softmax(torch.randn((n, R, C), generator=gen), -1)
+    on = torch.tensor([True, False])
+    coh = Cohort.whole("mlp-s", model, opt.init(list(model.parameters())),
+                       np.arange(n), data, opt)
+    with trace.recording() as rec:
+        sharded_cohort_step(coh, idx, ref_x, targets, on, RHO, True)
+    batch = cohort_batch(data, idx)
+    state, _ = cohort_step(twin, opt, opt.init(list(twin.parameters())),
+                           batch["x"], batch["y"], ref_x, targets, on, RHO,
+                           True)
+    for a, b in zip(model.parameters(), twin.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(state_tensors(coh.opt_state), state_tensors(state)):
+        assert torch.equal(a, b)
+    assert not [k for k in rec.counters if k.startswith("graph.")]
+    assert coh.shards[0].graphs.captured() == 0
+    assert rec.names["client.forward"]["calls"] == 1
+    # a copy of a shard starts with no graphs of its own
+    assert copy.deepcopy(coh.shards[0]).graphs is not coh.shards[0].graphs
+
+
+def test_trace_count_adds_only_while_recording():
+    trace.count("graph.replays", 3)          # off: nothing, no error
+    with trace.recording() as rec:
+        trace.count("graph.replays")
+        trace.count("graph.replays", 2)
+    assert rec.counters == {"graph.replays": 3}
+    trace.count("graph.replays")
+    assert rec.counters == {"graph.replays": 3}
 
 
 @pytest.mark.parametrize("family", ["mlp-s", "mlp-l"])
